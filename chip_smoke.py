@@ -1,0 +1,393 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (volumetricinterp_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py        # from the repository root; needs CUDA + nvcc
+
+Phases, one output line each, any failure exits non-zero:
+  1. device   the card (nvidia-smi name and power limit), TF32 off;
+  2. build    nvcc builds csrc/grid_eval.cu (seconds, registers, spills);
+  3. kernel   the grid-evaluation kernel against its plain twin at the
+              production order (MAXK=4, MAXL=6, nbasis=144) on a
+              512x512x32 grid with 8 records: float32 kernel within
+              5e-5 of the sup of the float64 twin, same NaN set; both timed;
+  4. fit      the main path's fit half: Interpolate.calc_coeffs in
+              exact_grid mode over the first 64 records of the seed-1
+              synthetic day, held against the JAX package's CPU float64 fits
+              of the same records (tests/oracle/day1000_seed1_oracle.npz,
+              exact mode; ..._window64_exact_grid.npz, exact_grid mode) in
+              chi2 and the W-weighted field residual;
+  5. product  the main path's product half: Estimate.evaluate_records of 8
+              records on the 512x512x128 grid with the FoV mask, through the
+              kernel (launch count > 0), FoV finite fraction 0.2809 +- 0.001,
+              and grid_eval against the float64 point API.
+Then a JSON line with the kernels, and last {"ok": true, "device": ...}.
+The coefficient file goes through h5py when it is installed; otherwise
+the same classes run on in-memory data (h5py: absent).
+"""
+
+import datetime as dt
+import json
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+
+from volumetricinterp_tpu_torch import Estimate, Interpolate  # noqa: E402
+from volumetricinterp_tpu_torch.config import Config  # noqa: E402
+from volumetricinterp_tpu_torch.coords import np_geodetic_to_cap  # noqa: E402
+from volumetricinterp_tpu_torch.io.amisr import qc_datasets  # noqa: E402
+from volumetricinterp_tpu_torch.io.synth import (  # noqa: E402
+    synthetic_amisr_datasets, write_synthetic_amisr)
+from volumetricinterp_tpu_torch.models.sphharmlag import Model  # noqa: E402
+from volumetricinterp_tpu_torch.ops import grid_eval_cuda  # noqa: E402
+from volumetricinterp_tpu_torch.ops.grid_eval import GridEvaluator  # noqa: E402
+
+EPOCH = dt.datetime(1970, 1, 1)
+# the production order (bench.py's model configuration)
+MODEL_CFG = """
+[MODEL]
+NAME = sphharmlag
+MAXK = 4
+MAXL = 6
+CAP_LIM = 10
+MAX_Z_INT = INF
+LATCP = 78
+LONCP = 262
+[TPU]
+QUAD_MODE = gauss
+REGPARAM_MODE = exact_grid
+"""
+# scripts/day_check.py's fit, in exact_grid mode
+FIT_CFG = """
+[DEFAULT]
+FILENAME = {raw}
+OUTPUTFILENAME = {out}
+REGULARIZATION_LIST = 0thorder
+REGULARIZATION_METHOD = chi2
+""" + MODEL_CFG
+DAY = dict(nrec=1000, seed=1, nan_frac=0.03, bad_frac=0.01, t0=1480286700.0,
+           cadence=60.0)
+KERNEL_TOL = 5e-5  # of the sup: float32 theta resolution (tests/test_grid_eval.py)
+# Fit bars.  At this basis order the day's normal matrices carry a dense
+# wall of modes at the gelsd cutoff, so chi2(alpha) is a staircase whose
+# steps move with rounding: any two correct solvers land at different
+# roots (PARITY_NOTES #4, #7, #8) and alpha itself is not data-determined.
+# Measured on this window, CPU float64: the JAX package's exact mode vs the
+# committed exact oracle, chi2 rel median 2.7e-2 max 0.17 (|dlog10 alpha|
+# median 0.59, max 57); its exact_grid mode vs its exact mode, W-weighted
+# field rel median 3.1e-2 max 8.5e-2.  PARITY_NOTES #4 gives 0.30 as the
+# day-scale worst-record chi2 bound.
+CHI2_MEDIAN_TOL = 0.05
+CHI2_MAX_TOL = 0.30
+WFIELD_MEDIAN_TOL = 0.05
+WFIELD_MAX_TOL = 0.15
+GRID_TOL = 5e-5  # of the sup, as KERNEL_TOL, plus
+GROSS_TOL = 1e-6  # of the point's gross sum: 16 float32 ulps (see phase 5)
+FINITE_FRAC = 0.2809  # FoV finite fraction of the config-4 grid (BENCH_r05)
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def cuda_ms(fn, reps):
+    """Mean device milliseconds per call of fn, by CUDA events, warmed up."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def grid(nlat, nlon, nalt):
+    return np.meshgrid(np.linspace(74.0, 82.0, nlat),
+                       np.linspace(252.0, 272.0, nlon),
+                       np.linspace(1.0e5, 6.0e5, nalt))
+
+
+def phase_device():
+    check(torch.cuda.is_available(), "CUDA is not available")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(smi.splitlines()[0])
+    print(f"phase 1 device: {torch.cuda.get_device_name(0)}, torch "
+          f"{torch.__version__}, CUDA {torch.version.cuda}, allow_tf32 "
+          f"matmul={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
+
+
+def phase_build():
+    info = grid_eval_cuda.build()
+    log = Path(info["path"]).with_suffix(".log")  # beside the library
+    log.write_text(info["log"])
+    regs = [int(w) for line in info["log"].splitlines() if "Used" in line
+            for w, nxt in zip(line.split(), line.split()[1:])
+            if nxt.startswith("registers")]
+    spills = sum(int(line.split()[line.split().index("bytes") - 1])
+                 for line in info["log"].splitlines() if "spill stores" in line)
+    print(f"phase 2 build: {info['seconds']:.1f} s nvcc, {len(regs)} kernel "
+          f"instantiations, max {max(regs, default=0)} registers, {spills} "
+          f"bytes of spill stores ({log.relative_to(ROOT)})", flush=True)
+
+
+def phase_kernel(device="cuda", shape=(512, 512, 32), nrec=8, reps=20):
+    """Kernel vs plain twin; returns the kernel's JSON entry."""
+    model = Model(Config.from_text(MODEL_CFG))
+    glat, glon, galt = grid(*shape)
+    _, t, _ = np_geodetic_to_cap(glat.ravel(), glon.ravel(), galt.ravel(),
+                                 model.latcp, model.loncp)
+    ev = GridEvaluator(model, (t.min(), t.max()), device=device)
+    Cs = np.random.default_rng(0).normal(size=(nrec, model.nbasis)) * 1e11
+    pts32 = [torch.as_tensor(a.ravel(), dtype=torch.float32, device=device)
+             for a in (glat, glon, galt)]
+    pts64 = [torch.as_tensor(a.ravel(), dtype=torch.float64, device=device)
+             for a in (glat, glon, galt)]
+    ceff32, ceff64 = ev.fold_coeffs(Cs), ev.fold_coeffs(Cs, torch.float64)
+    # every 7th point masked out, to hold the NaN sets against each other
+    inside = torch.arange(glat.size, device=device) % 7 != 0
+
+    out = grid_eval_cuda.eval_records(*pts32, ceff32, ev, inside)
+    ref = grid_eval_cuda.eval_records_plain(*pts64, ceff64, ev, inside)
+    nan, nan_ref = torch.isnan(out), torch.isnan(ref)
+    check(torch.equal(nan, nan_ref), "kernel and twin NaN sets differ")
+    check(int(nan.sum()) == nrec * int((~inside).sum()), "unexpected NaNs")
+    ok = ~nan_ref
+    sup = float(ref[ok].abs().max())
+    err = float((out.double() - ref)[ok].abs().max())
+    check(err <= KERNEL_TOL * sup,
+          f"kernel error {err:.3e} > {KERNEL_TOL} x sup {sup:.3e}")
+
+    if device == "cuda":
+        ms = cuda_ms(lambda: grid_eval_cuda.eval_records(*pts32, ceff32, ev),
+                     reps)
+        plain_ms = cuda_ms(lambda: grid_eval_cuda.eval_records_plain(
+            *pts32, ceff32, ev), max(1, reps // 10))
+        plain64_ms = cuda_ms(lambda: grid_eval_cuda.eval_records_plain(
+            *pts64, ceff64, ev), 1)
+    else:
+        ms = plain_ms = plain64_ms = float("nan")
+    npts = glat.size
+    print(f"phase 3 kernel: {npts} points x {nrec} records, degree "
+          f"{ev.degree}, max|kernel - f64 twin| = {err:.4e} = "
+          f"{err / sup:.3e} of sup {sup:.4e} (bar {KERNEL_TOL}), NaN sets equal; "
+          f"kernel {ms:.4f} ms ({npts * nrec / ms * 1e3:.4e} point-records/s), "
+          f"f32 twin {plain_ms:.4f} ms, f64 twin {plain64_ms:.4f} ms",
+          flush=True)
+    return {"name": "grid_eval_records", "route": "cuda",
+            "source": "volumetricinterp_tpu_torch/csrc/grid_eval.cu",
+            "replaces": "volumetricinterp_tpu/ops/grid_eval_pallas.py:94",
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms}
+
+
+def phase_fit(workdir, device="cuda", nwin=64, day=DAY):
+    """The fit half over the first nwin records of the synthetic day;
+    returns the Estimate of the fitted coefficients."""
+    try:
+        import h5py  # noqa: F401
+        have_h5py = True
+    except ImportError:
+        have_h5py = False
+    raw = str(workdir / "day.h5")
+    out = str(workdir / "coef.h5") if have_h5py else ""
+    text = FIT_CFG.format(raw=raw, out=out)
+    model = Model(Config.from_text(text))
+    t0 = time.perf_counter()
+    if have_h5py:
+        write_synthetic_amisr(raw, smooth_in_model=model, **day)
+        interp = Interpolate(text, device=device)
+    else:
+        data = synthetic_amisr_datasets(smooth_in_model=model, **day)
+
+        class MemInterpolate(Interpolate):
+            def read_datafile(self, filename):
+                return qc_datasets(data, self.param, self.errlim,
+                                   self.chi2lim, self.goodfitcode)
+
+        interp = MemInterpolate(text, device=device)
+    synth_s = time.perf_counter() - t0
+
+    start = EPOCH + dt.timedelta(seconds=day["t0"])
+    end = start + dt.timedelta(seconds=day["cadence"] * nwin)
+    t0 = time.perf_counter()
+    interp.calc_coeffs(start, end)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_rec_s = interp.timer.report()["fit_records"]
+
+    chi2, reg, C = interp.chi_sq, interp.reg_params[:, 0], interp.Coeffs
+    check(chi2.shape == (nwin,) and C.shape == (nwin, 144),
+          f"fit shapes {chi2.shape} {C.shape}")
+    check(np.isfinite(chi2).all() and (reg > 0).all() and np.isfinite(C).all(),
+          "non-finite fit records")
+    check((chi2 >= 0).all(), "negative chi2")
+    oracle = np.load(ROOT / "tests" / "oracle" / "day1000_seed1_oracle.npz")
+    check(np.array_equal(np.isnan(chi2), np.isnan(oracle["chi2"][:nwin])),
+          "NaN set differs from the oracle")
+    rel = np.abs(chi2 - oracle["chi2"][:nwin]) / oracle["chi2"][:nwin]
+    dla = np.abs(np.log10(reg) - np.log10(oracle["reg"][:nwin, 0]))
+    check(np.median(rel) <= CHI2_MEDIAN_TOL and rel.max() <= CHI2_MAX_TOL,
+          f"chi2 vs the exact oracle: median {np.median(rel):.3e}, max "
+          f"{rel.max():.3e} (record {int(rel.argmax())})")
+    # the data-determined metric against the exact_grid window oracle
+    grid_o = np.load(ROOT / "tests" / "oracle"
+                     / "day1000_seed1_window64_exact_grid.npz")
+    _, lat, lon, alt, value, error = interp.read_datafile(interp.filename)
+    A = interp.model.basis(lat, lon, alt)
+    sw = np.isfinite(value[:nwin]) / np.where(np.isfinite(value[:nwin]),
+                                              error[:nwin], 1.0)
+    C_o = grid_o["C"][:nwin]
+    wf = (np.linalg.norm(sw * ((C - C_o) @ A.T), axis=1)
+          / np.linalg.norm(sw * (C_o @ A.T), axis=1))
+    rel_g = np.abs(chi2 - grid_o["chi2"][:nwin]) / grid_o["chi2"][:nwin]
+    dla_g = np.abs(np.log10(reg) - np.log10(grid_o["reg"][:nwin, 0]))
+    check(np.median(wf) <= WFIELD_MEDIAN_TOL and wf.max() <= WFIELD_MAX_TOL,
+          f"W-weighted field vs the exact_grid oracle: median "
+          f"{np.median(wf):.3e}, max {wf.max():.3e} (record {int(wf.argmax())})")
+    check(rel_g.max() <= CHI2_MAX_TOL, f"chi2 vs the exact_grid oracle: max "
+          f"{rel_g.max():.3e} (record {int(rel_g.argmax())})")
+    eigh_s = _eigh_seconds(nwin, device) if device == "cuda" else float("nan")
+    print(f"phase 4 fit: h5py: {'present' if have_h5py else 'absent'}; "
+          f"synthetic day {synth_s:.2f} s; calc_coeffs({nwin} records, "
+          f"exact_grid) {fit_s:.3f} s, of which fit_records {fit_rec_s:.3f} s "
+          f"= {nwin / fit_rec_s:.3f} records/s; eigh at the fit's batch "
+          f"shapes, timed alone: {eigh_s:.3f} s; 0 NaN, 0 negative chi2; "
+          f"vs exact oracle: chi2 rel median {np.median(rel):.4e} max "
+          f"{rel.max():.4e}, |dlog10 alpha| median {np.median(dla):.4e} max "
+          f"{dla.max():.4e}; vs exact_grid oracle: W-weighted field rel "
+          f"median {np.median(wf):.4e} max {wf.max():.4e}, chi2 rel median "
+          f"{np.median(rel_g):.4e} max {rel_g.max():.4e}, |dlog10 alpha| "
+          f"median {np.median(dla_g):.4e} max {dla_g.max():.4e}", flush=True)
+
+    if have_h5py:
+        interp.saveh5()
+        return Estimate(out, device=device)
+
+    class MemEstimate(Estimate):
+        def loadh5(self, filename=None):
+            self.Coeffs, self.Covariance = interp.Coeffs, interp.Covariance
+            self.time, self.hull_vert = interp.time, interp.hull_vert
+            self.config_file_text = interp.config.raw_text
+            self.chi2, self.raw_filename = interp.chi_sq, raw
+
+    return MemEstimate(None, device=device)
+
+
+def _eigh_seconds(nwin, device):
+    """Seconds the fit's eigendecompositions take at its own batch shapes
+    (101 grid alphas per record in batches of EIGH_BATCH, 40 bisection
+    rounds and the final solve over nwin records), on random SPD matrices."""
+    from volumetricinterp_tpu_torch.ops.regparam import EIGH_BATCH, N_BISECT
+
+    n_grid = nwin * 101
+    batches = [EIGH_BATCH] * (n_grid // EIGH_BATCH) + [n_grid % EIGH_BATCH]
+    batches += [nwin] * (N_BISECT + 1)
+    g = torch.randn(EIGH_BATCH, 144, 144, dtype=torch.float64, device=device)
+    X = g @ g.transpose(-1, -2)
+    torch.linalg.eigh(X[:8])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        if b:
+            torch.linalg.eigh(X[:b])
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase_product(est, device="cuda", shape=(512, 512, 128), nrec=8,
+                  finite_frac=FINITE_FRAC):
+    """The product half; returns the kernel launches it made."""
+    times = [EPOCH + dt.timedelta(seconds=float(t))
+             for t in np.mean(est.time, axis=1)[:nrec]]
+    glat, glon, galt = grid(*shape)
+    before = grid_eval_cuda.launches
+    t0 = time.perf_counter()
+    vol = est.evaluate_records(times, glat, glon, galt, check_hull=True)
+    cold_s = time.perf_counter() - t0
+    launched = grid_eval_cuda.launches - before
+    cold = est.timer.report()
+    t0 = time.perf_counter()
+    vol2 = est.evaluate_records(times, glat, glon, galt, check_hull=True)
+    warm_s = time.perf_counter() - t0
+    warm = {k: v - cold.get(k, 0.0) for k, v in est.timer.report().items()}
+    check(vol.shape == (nrec,) + glat.shape and vol.dtype == np.float32,
+          f"product shape {vol.shape} {vol.dtype}")
+    check(np.array_equal(vol, vol2, equal_nan=True), "repeat call differs")
+    ff = float(np.isfinite(vol).mean())
+    if finite_frac is not None:
+        check(abs(ff - finite_frac) <= 1e-3,
+              f"finite fraction {ff:.4f} != {finite_frac} +- 0.001")
+    # one record on 10^4 grid points: float32 grid_eval vs float64 __call__
+    idx = np.random.default_rng(3).choice(glat.size, 10_000, replace=False)
+    pts = [a.ravel()[idx] for a in (glat, glon, galt)]
+    fast = est.grid_eval(times[0], *pts)
+    exact = est(times[0], *pts)
+    check(np.array_equal(np.isnan(fast), np.isnan(exact)),
+          "grid_eval and __call__ NaN sets differ")
+    check(np.array_equal(fast, vol[0].ravel()[idx], equal_nan=True),
+          "grid_eval differs from evaluate_records")
+    # float32 error model: a fitted production-order record cancels its
+    # terms ~3e3-fold (sub-cutoff coefficient directions, PARITY_NOTES #8),
+    # so the floor is float32 rounding of the GROSS sum sum_n |C_n B_n(x)|:
+    # the TPU kernel (interpret mode) and this kernel's twin both measure
+    # ~2e-4 of the sup on record 0 of this window, 5e-8 of the gross sum
+    C0 = np.asarray(est.get_C(times[0])[0], np.float64)
+    gross = np.abs(est.model.basis(*pts) * C0).sum(-1)
+    fin = np.isfinite(exact)
+    sup = np.max(np.abs(exact[fin]))
+    diff = np.abs(fast - exact)[fin]
+    check((diff <= GRID_TOL * sup + GROSS_TOL * gross[fin]).all(),
+          f"grid_eval error {diff.max():.3e} beyond {GRID_TOL} x sup "
+          f"{sup:.3e} + {GROSS_TOL} x gross")
+    npts = glat.size * nrec
+    print(f"phase 5 product: evaluate_records({nrec} records x {glat.size} "
+          f"points, FoV mask) cold {cold_s:.3f} s ({npts / cold_s:.4e} "
+          f"points/s: {_phases(cold)}), warm {warm_s:.3f} s ({npts / warm_s:.4e} "
+          f"points/s: {_phases(warm)}); "
+          f"finite fraction {ff:.4f}; grid_eval vs f64 __call__ at 10^4 "
+          f"points ({int(fin.sum())} in the FoV): max {diff.max() / sup:.3e} "
+          f"of sup, {np.max(diff / gross[fin]):.3e} of the gross sum; kernel "
+          f"launches {launched}", flush=True)
+    return launched
+
+
+def _phases(times):
+    return ", ".join(f"{k} {v:.3f} s" for k, v in times.items() if v > 0)
+
+
+def main():
+    phase_device()
+    phase_build()
+    kernel = phase_kernel()
+    # the main path: launch counts from here on
+    grid_eval_cuda.launches = 0
+    with tempfile.TemporaryDirectory(prefix=".smoke-", dir=ROOT) as tmp:
+        est = phase_fit(Path(tmp))
+        phase_product(est)
+    kernel["launches"] = grid_eval_cuda.launches
+    check(kernel["launches"] > 0, "the main path never launched the kernel")
+    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -32,10 +32,13 @@ setup(
         "Operating System :: OS Independent",
     ],
     packages=find_packages(exclude=["tests", "tests.*"]),
-    package_data={"volumetricinterp_tpu": ["example_config.ini"]},
+    package_data={"volumetricinterp_tpu": ["example_config.ini"],
+                  "volumetricinterp_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "scipy", "h5py"],
-    extras_require={"plots": ["matplotlib", "cartopy"]},
+    extras_require={"plots": ["matplotlib", "cartopy"],
+                    # the PyTorch/CUDA port, volumetricinterp_tpu_torch
+                    "torch": ["torch"]},
     zip_safe=False,
     entry_points={
         "console_scripts": [

@@ -1,0 +1,83 @@
+"""The PyTorch port stands alone: it imports and runs its plain path in a
+process where jax (and, separately, h5py) cannot be imported, never imports
+the JAX package, and refuses a CUDA device it does not have."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+
+SCRIPT = r"""
+import sys
+for name in {blocked!r}:
+    sys.modules[name] = None  # any import of it raises ImportError
+import numpy as np
+import torch
+import volumetricinterp_tpu_torch as vt
+from volumetricinterp_tpu_torch.config import Config
+from volumetricinterp_tpu_torch.io.amisr import qc_datasets
+from volumetricinterp_tpu_torch.io.synth import synthetic_amisr_datasets
+from volumetricinterp_tpu_torch.models.sphharmlag import Model
+from volumetricinterp_tpu_torch.ops.fit import fit_records
+from volumetricinterp_tpu_torch.ops.grid_eval import GridEvaluator
+
+cfg = Config.from_text('''
+[DEFAULT]
+REGULARIZATION_LIST = 0thorder
+[MODEL]
+MAXK = 2
+MAXL = 3
+[TPU]
+QUAD_MODE = gauss
+''')
+model = Model(cfg)
+d = synthetic_amisr_datasets(nrec=3, seed=2, smooth_in_model=model)
+_, lat, lon, alt, v, e = qc_datasets(d, "dens", [1e10, 1e13], [0.1, 10],
+                                     [1, 2, 3, 4])
+A = model.basis(lat, lon, alt)
+C, dC, chi2, rp = fit_records(v, e, A, model.eval_psi()[None], device="cpu")
+assert torch.isfinite(chi2).all() and (rp > 0).all()
+_, t, _ = model.transform_coord(lat, lon, alt)
+ev = GridEvaluator(model, (t.min(), t.max()), device="cpu")
+out = ev.eval_records(C.numpy(), lat, lon, alt).numpy()
+ref = (A @ C.numpy().T).T
+assert np.max(np.abs(out - ref)) < 5e-5 * np.max(np.abs(ref))
+for make in (lambda: GridEvaluator(model, (t.min(), t.max()), device="cuda"),
+             lambda: vt.Interpolate(cfg, device="cuda")):
+    try:
+        make()
+    except RuntimeError:
+        pass
+    else:
+        raise SystemExit("device='cuda' did not raise without CUDA")
+assert not any(m == "jax" or m.startswith(("jax.", "volumetricinterp_tpu."))
+               or m == "volumetricinterp_tpu" for m in sys.modules
+               if sys.modules[m] is not None)
+print("OK")
+"""
+
+
+@pytest.mark.parametrize("blocked", [("jax",), ("jax", "h5py")],
+                         ids=["no-jax", "no-jax-no-h5py"])
+def test_port_runs_without_jax(blocked):
+    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, "-c", SCRIPT.format(blocked=blocked)],
+                         cwd=str(ROOT), env=env, capture_output=True,
+                         text=True, timeout=240)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().endswith("OK")
+
+
+def test_no_jax_imports_in_the_port():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|volumetricinterp_tpu)\b",
+                     re.M)
+    files = sorted((ROOT / "volumetricinterp_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    for f in files:
+        assert not pat.search(f.read_text()), f

@@ -1,0 +1,103 @@
+"""Geodetic coordinate transforms.
+
+Host numpy float64 halves (``np_geodetic2ecef``, ``np_geodetic_to_cap``)
+are copies of the JAX package's: the fit's design matrix and Estimate's
+point API transform on the host in exact float64.  ``cap_rotation`` gives
+the rotation constants of the cap transform, and ``geodetic_to_cap`` is
+the torch transform used by the grid evaluator's plain version; both follow
+models/sphharmlag.py:324-359 of the reference, including its +theta0
+rotation quirk (docs/PARITY_NOTES.md #1).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .constants import RE, WGS84_A, WGS84_E2
+
+
+def np_geodetic2ecef(gdlat, gdlon, gdalt):
+    """Geodetic (deg, deg, m) -> ECEF (m), WGS-84, host float64."""
+    lat = np.deg2rad(np.asarray(gdlat, dtype=np.float64))
+    lon = np.deg2rad(np.asarray(gdlon, dtype=np.float64))
+    alt = np.asarray(gdalt, dtype=np.float64)
+    sin_lat = np.sin(lat)
+    n = WGS84_A / np.sqrt(1.0 - WGS84_E2 * sin_lat**2)
+    x = (n + alt) * np.cos(lat) * np.cos(lon)
+    y = (n + alt) * np.cos(lat) * np.sin(lon)
+    z = (n * (1.0 - WGS84_E2) + alt) * sin_lat
+    return x, y, z
+
+
+def np_geodetic_to_cap(gdlat, gdlon, gdalt, latcp, loncp):
+    """Geodetic -> cap coordinates (z, theta, phi), host float64."""
+    x0, y0, z0 = np_geodetic2ecef(latcp, loncp, 0.0)
+    r0 = np.sqrt(x0**2 + y0**2 + z0**2)
+    theta0 = np.arccos(z0 / r0)
+    phi0 = np.arctan2(y0, x0)
+    k = np.array(
+        [np.cos(phi0 + np.pi / 2.0), np.sin(phi0 + np.pi / 2.0), 0.0]
+    )
+    x, y, z = np_geodetic2ecef(gdlat, gdlon, gdalt)
+    ct, st = np.cos(theta0), np.sin(theta0)
+    cx = k[1] * z - k[2] * y
+    cy = k[2] * x - k[0] * z
+    cz = k[0] * y - k[1] * x
+    kdv = k[0] * x + k[1] * y + k[2] * z
+    rx = x * ct + cx * st + k[0] * kdv * (1.0 - ct)
+    ry = y * ct + cy * st + k[1] * kdv * (1.0 - ct)
+    rz = z * ct + cz * st + k[2] * kdv * (1.0 - ct)
+    r = np.sqrt(rx**2 + ry**2 + rz**2)
+    t = np.arccos(rz / r)
+    p = np.arctan2(ry, rx)
+    return 100.0 * (r / RE - 1.0), t, p
+
+
+def cap_rotation(latcp, loncp):
+    """Rotation constants (kx, ky, cos theta0, sin theta0) of the cap
+    transform, computed on the host in float64 exactly as the TPU kernel's
+    launcher does (grid_eval_pallas.py:223-228).  The axis k = (kx, ky, 0)
+    is horizontal, 90 degrees east of the cap centre."""
+    x0, y0, z0 = np_geodetic2ecef(latcp, loncp, 0.0)
+    th0 = float(np.arccos(z0 / np.sqrt(x0**2 + y0**2 + z0**2)))
+    phi0 = float(np.arctan2(y0, x0))
+    return (float(np.cos(phi0 + np.pi / 2.0)),
+            float(np.sin(phi0 + np.pi / 2.0)),
+            float(np.cos(th0)), float(np.sin(th0)))
+
+
+def geodetic_to_cap(gdlat, gdlon, gdalt, rot):
+    """Torch geodetic -> rotated-frame quantities, in the inputs' dtype.
+
+    ``rot`` is ``cap_rotation(latcp, loncp)``; its constants are rounded
+    to the inputs' dtype first, as the kernel receives them.  Returns
+    (z, theta, cos phi, sin phi): theta as atan2(rho, rz) with rho the
+    rotated frame's horizontal radius (the same angle as the reference's
+    arccos(rz / r), without the cancellation of 1 - q^2 near the pole), and
+    cos/sin(phi) as rx/rho, ry/rho, so phi itself is never formed."""
+    import torch
+
+    # python-float constants enter float32 arithmetic rounded to float32,
+    # exactly as the kernel's float constants do
+    kx, ky, ct0, st0 = rot
+    if gdlat.dtype == torch.float32:
+        kx, ky, ct0, st0 = (float(np.float32(c)) for c in rot)
+    latr = gdlat * (np.pi / 180.0)
+    lonr = gdlon * (np.pi / 180.0)
+    sla, cla = torch.sin(latr), torch.cos(latr)
+    nrad = WGS84_A / torch.sqrt(1.0 - WGS84_E2 * sla * sla)
+    rho = (nrad + gdalt) * cla
+    x = rho * torch.cos(lonr)
+    y = rho * torch.sin(lonr)
+    zz = (nrad * (1.0 - WGS84_E2) + gdalt) * sla
+    kdv = kx * x + ky * y
+    omc = 1.0 - ct0
+    rx = x * ct0 + ky * zz * st0 + kx * kdv * omc
+    ry = y * ct0 - kx * zz * st0 + ky * kdv * omc
+    rz = zz * ct0 + (kx * y - ky * x) * st0
+    r2h = rx * rx + ry * ry
+    rho_h = torch.sqrt(torch.clamp(r2h, min=1e-30))
+    r = torch.sqrt(r2h + rz * rz)
+    theta = torch.atan2(rho_h, rz)
+    z = 100.0 * (r * (1.0 / RE) - 1.0)
+    return z, theta, rx / rho_h, ry / rho_h

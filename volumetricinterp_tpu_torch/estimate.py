@@ -1,0 +1,213 @@
+"""Estimate — coefficient-file evaluation engine (API parity with the
+reference estimate.py:13-221 and the JAX package's Estimate).
+
+* ``__call__`` (the point API) runs on the host in exact float64 numpy:
+  design matrix, A @ C, the FoV hull mask and, with calcerr, the field
+  error sqrt(a' dC a).
+* ``grid_eval`` / ``evaluate_records`` (dense grids, keogram/volume
+  products) run through the float32 grid evaluator on ``device``: the
+  Hopper kernel on the card, with the FoV mask applied inside the kernel,
+  so one [chunk, npoints] output buffer exists per record chunk.
+"""
+
+from __future__ import annotations
+
+import datetime as dt
+import hashlib
+
+import numpy as np
+import torch
+
+from .config import Config
+from . import coords, models
+from .io.coeffs import load_coeff_file
+from .ops.grid_eval import make_grid_evaluator
+from .utils.device import check_device
+from .utils.hull import hull_equations
+from .utils.hull import np_check_hull as np_hull_mask
+from .utils.logging import PhaseTimer
+
+
+class Estimate:
+    def __init__(self, coeff_filename, timetol=60.0, timeinterp=False,
+                 device="cuda"):
+        """timeinterp: False (nearest record within timetol, reference
+        default) or True (linear between bracketing records).  device: where
+        dense grids are evaluated ('cuda' or 'cpu'; no fallback)."""
+        self.device = check_device(device)
+        if timeinterp == "spline":
+            raise NotImplementedError(
+                "timeinterp='spline' is not ported to the PyTorch package yet "
+                "(ROADMAP queue 1: timejoint and timesmooth)")
+        self.timetol = timetol
+        self.timeinterp = timeinterp
+
+        self.loadh5(filename=coeff_filename)
+
+        # reconstruct the identical Model from the embedded config text
+        # (reference estimate.py:41-50)
+        text = self.config_file_text
+        if isinstance(text, bytes):
+            text = text.decode("utf-8")
+        self.config = Config.from_text(text)
+        self.model_name = self.config.model.name
+        self.model = models.make_model(self.model_name, self.config)
+
+        self._hull_eqs = hull_equations(self.hull_vert)
+        self._prepared_grid = None
+        self._grid_ev = None
+        self.timer = PhaseTimer()
+
+    def loadh5(self, filename=None):
+        """Load the coefficient file (reference estimate.py:53-70)."""
+        d = load_coeff_file(filename)
+        self.Coeffs = d["Coeffs"]
+        self.Covariance = d["Covariance"]
+        self.time = d["UnixTime"]
+        self.hull_vert = d["hull_vert"]
+        self.config_file_text = d["config_file_text"]
+        self.chi2 = d.get("chi2")
+        self.raw_filename = d.get("raw_filename")
+
+    def __call__(self, time, gdlat, gdlon, gdalt, calcgrad=False,
+                 calcerr=False, check_hull=True):
+        """Evaluate the reconstruction at geodetic points for one time, on
+        the host in float64.  Returns P, or (P, err) with calcerr."""
+        if calcgrad:
+            raise NotImplementedError(
+                "calcgrad is not ported to the PyTorch package yet "
+                "(ROADMAP queue 1: gradients and inverse_transform)")
+        C, dC = self.get_C(time)
+        A = np.asarray(self.model.basis(gdlat, gdlon, gdalt), np.float64)
+        parameter = A @ np.asarray(C, np.float64)
+        inside = None
+        if check_hull:
+            inside = np_hull_mask(self._hull_eqs, gdlat, gdlon, gdalt)
+            parameter = np.where(inside, parameter, np.nan)
+        if not calcerr:
+            return parameter
+        dC = np.asarray(dC, np.float64)
+        err = np.sqrt(np.einsum("...i,ij,...j->...", A, dC, A))
+        if check_hull:
+            err = np.where(inside, err, np.nan)
+        return parameter, err
+
+    def get_C(self, t):
+        """Coefficients for a requested time (reference estimate.py:180-221):
+        nearest record within timetol, or linear interpolation between the
+        two bracketing record mid-times when timeinterp=True.  Naive
+        datetimes are UTC; aware ones are converted to UTC."""
+        if t.tzinfo is not None:
+            t = t.astimezone(dt.timezone.utc).replace(tzinfo=None)
+        t0 = (t - dt.datetime(1970, 1, 1)).total_seconds()
+        mt = np.mean(self.time, axis=1)
+        try:
+            if self.timeinterp:
+                i = np.argwhere((t0 >= mt[:-1]) & (t0 < mt[1:])).flatten()[0]
+                T = (t0 - mt[i]) / (mt[i + 1] - mt[i])
+                C = (1 - T) * self.Coeffs[i, :] + T * self.Coeffs[i + 1, :]
+                dC = (1 - T) * self.Covariance[i, :, :] + T * self.Covariance[
+                    i + 1, :, :
+                ]
+            else:
+                i = np.argmin(np.abs(mt - t0))
+                if np.abs(mt[i] - t0) > self.timetol:
+                    raise IndexError
+                C = self.Coeffs[i]
+                dC = self.Covariance[i]
+        except IndexError:
+            raise ValueError("Requested time out of range of data file.")
+        return C, dC
+
+    # ------------------------------------------------------------------
+    # dense-grid path
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _grid_key(*arrays):
+        """Full content hash of the grid (shape, dtype, every byte): a
+        sampled fingerprint could alias an edited grid."""
+        h = hashlib.sha1()
+        for a in arrays:
+            a = np.ascontiguousarray(a)
+            h.update(f"{a.shape}{a.dtype}".encode())
+            h.update(a)
+        return h.digest()
+
+    def _prepare_grid(self, gdlat, gdlon, gdalt, need_hull):
+        """Record-independent state of one evaluation grid, cached for the
+        most recent grid: the float32 coordinates on the device, the
+        colatitude band (host float64 cap transform) and the FoV mask (host
+        half-space test) on the device.  Called with a non-empty grid; each
+        step is a ``self.timer`` phase."""
+        with self.timer.phase("grid_hash"):
+            key = self._grid_key(gdlat, gdlon, gdalt)
+        g = self._prepared_grid
+        if g is None or g["key"] != key:
+            shape = np.shape(gdlat)
+            with self.timer.phase("grid_band"):
+                _, t, _ = coords.np_geodetic_to_cap(
+                    np.asarray(gdlat, np.float64).ravel(),
+                    np.asarray(gdlon, np.float64).ravel(),
+                    np.asarray(gdalt, np.float64).ravel(),
+                    self.model.latcp, self.model.loncp)
+                band = (float(t.min()), float(t.max()))
+            g = {"key": key, "shape": shape, "band": band, "inside": None}
+            with self.timer.phase("grid_upload"):
+                g["lat"], g["lon"], g["alt"] = (
+                    torch.as_tensor(np.asarray(a).ravel(), dtype=torch.float32,
+                                    device=self.device)
+                    for a in (gdlat, gdlon, gdalt))
+            self._prepared_grid = g
+        if need_hull and g["inside"] is None:
+            with self.timer.phase("grid_hull"):
+                inside = np_hull_mask(self._hull_eqs, gdlat, gdlon, gdalt)
+                g["inside"] = torch.as_tensor(inside.ravel(),
+                                              device=self.device)
+        return g
+
+    def _band_evaluator(self, band):
+        """Evaluator covering the band, reused while a new band fits inside
+        the cached one."""
+        lo, hi = band
+        ev = self._grid_ev
+        if ev is None or not (ev.theta_lo <= lo and hi <= ev.theta_hi):
+            self.model.ensure_theta_domain(hi)
+            ev = make_grid_evaluator(self.model, (lo, hi), device=self.device)
+            self._grid_ev = ev
+        return ev
+
+    def grid_eval(self, time, gdlat, gdlon, gdalt, check_hull=True):
+        """Dense-grid evaluation of one time through the float32 fast path
+        (~5e-5 of the sup from __call__'s float64).  Returns a float32 numpy
+        array shaped like gdlat."""
+        return self.evaluate_records([time], gdlat, gdlon, gdalt,
+                                     check_hull=check_hull)[0]
+
+    def evaluate_records(self, times, gdlat, gdlon, gdalt, check_hull=True):
+        """Evaluate the same grid for many times (keogram/volume products).
+
+        times: sequence of datetimes.  Returns float32 [ntimes, *grid.shape]
+        (an empty array for no times or an empty grid).  Records run in
+        chunks whose [chunk, npoints] float32 output stays <= 0.5 GB on the
+        device; each chunk is one kernel launch with the FoV mask fused."""
+        times = list(times)
+        shape = np.shape(gdlat)
+        npts = int(np.prod(shape))
+        out = np.empty((len(times),) + shape, dtype=np.float32)
+        if not times or npts == 0:
+            return out
+        g = self._prepare_grid(gdlat, gdlon, gdalt, need_hull=check_hull)
+        ev = self._band_evaluator(g["band"])
+        Cs = np.stack([np.asarray(self.get_C(t)[0], np.float64)
+                       for t in times])
+        flat = out.reshape(len(times), npts)
+        chunk = max(1, int(2 ** 27 // npts))
+        inside = g["inside"] if check_hull else None
+        with self.timer.phase("grid_eval"):  # kernel launches + D2H copies
+            for s in range(0, len(times), chunk):
+                blk = ev.eval_records_flat(ev.fold_coeffs(Cs[s:s + chunk]),
+                                           g["lat"], g["lon"], g["alt"],
+                                           inside)
+                flat[s:s + chunk] = blk.cpu().numpy()
+        return out

@@ -1,0 +1,292 @@
+"""Interpolate — the batched fit engine (public API parity with the
+reference class of the same name, interpolate.py:16-708, and the JAX
+package's Interpolate).
+
+The day runs as a plain loop over record chunks: each chunk is fitted in
+float64 on ``device`` (ops/fit.py: masked sufficient statistics, the chi2
+regularization search, the cutoff solve), copied to the host and, when an
+output file is configured, flushed to it (io.coeffs.IncrementalCoeffWriter)
+so an interrupted run leaves a valid checkpoint; ``saveh5`` then finalizes
+the file in place.
+
+Attribute parity: configfile, regularization_list, reg_method, filename,
+outputfilename, param, errlim, chi2lim, goodfitcode, model_name, model,
+hull_vert, time, Coeffs, Covariance, chi_sq, reg_params.
+"""
+
+from __future__ import annotations
+
+import datetime as dt
+import os
+
+import numpy as np
+import torch
+
+from .config import Config
+from . import models
+from .io.amisr import read_datafile
+from .io.coeffs import (IncrementalCoeffWriter, finalize_checkpoint,
+                        save_coeff_file)
+from .ops.fit import fit_records
+from .ops import regparam as regparam_mod
+from .utils.device import check_device
+from .utils.hull import compute_hull_vertices
+from .utils.logging import PhaseTimer, fit_quality_report, logger
+
+
+class Interpolate:
+    def __init__(self, config_file, device="cuda"):
+        """config_file: a Config, a path, an open file or INI text.
+        device: where the fit runs ('cuda' or 'cpu'; no fallback)."""
+        self.device = check_device(device)
+        if isinstance(config_file, Config):
+            self.config = config_file
+            self.configfile = self.config.path or ""
+        else:
+            self.configfile = config_file if isinstance(config_file, str) else ""
+            self.config = Config.from_file(config_file)
+        self.read_config(self.config)
+        self.model = models.make_model(self.model_name, self.config)
+        self.timer = PhaseTimer()
+        self.reg_params = None
+
+    def read_config(self, config):
+        """Populate reference-parity attributes (interpolate.py:64-88)."""
+        if not isinstance(config, Config):
+            config = Config.from_file(config)
+            self.config = config
+        f = config.fit
+        self.regularization_list = list(f.regularization_list)
+        self.reg_method = f.regularization_method
+        self.filename = f.filename
+        self.outputfilename = f.outputfilename
+        self.param = f.param
+        self.errlim = list(f.errlim)
+        self.chi2lim = list(f.chi2lim)
+        self.goodfitcode = list(f.goodfitcode)
+        self.model_name = config.model.name
+
+    def compute_hull(self, lat, lon, alt):
+        """Reference interpolate.py:409-426; sets self.hull_vert."""
+        self.hull_vert = compute_hull_vertices(lat, lon, alt)
+
+    def read_datafile(self, filename):
+        """Reference interpolate.py:582-667."""
+        return read_datafile(
+            filename, self.param, self.errlim, self.chi2lim, self.goodfitcode
+        )
+
+    # ------------------------------------------------------------------
+    # the batched fit
+    # ------------------------------------------------------------------
+
+    def _reg_matrices(self):
+        # memoized: the matrices depend only on the model config
+        cached = getattr(self, "_reg_matrices_cache", None)
+        if cached is not None:
+            return cached
+        reg_matricies = {}
+        for reg in self.regularization_list:
+            try:
+                reg_matricies[reg] = np.asarray(
+                    self.model.eval_reg_matricies[reg]()
+                )
+            except KeyError as e:
+                # message parity with interpolate.py:490-493
+                logger.warning(
+                    "The model %s does not support %s regularization! "
+                    "If you would like to use %s regularization, please "
+                    "modify %s.py so that it includes functions to calculate "
+                    "the appropriate regularization matrix.",
+                    self.model_name, reg, reg, self.model_name,
+                )
+                raise e
+        self._reg_matrices_cache = reg_matricies
+        return reg_matricies
+
+    def _check_supported(self):
+        f = self.config.fit
+        for key, val, item in (
+                ("REGULARIZATION_PROFILE", f.regularization_profile,
+                 "multiparam and profile taus"),
+                ("TIME_COUPLING", f.time_coupling, "timejoint and timesmooth"),
+                ("TIME_SMOOTHING", f.time_smoothing,
+                 "timejoint and timesmooth")):
+            if val:
+                raise NotImplementedError(
+                    f"{key} is not ported to the PyTorch package yet "
+                    f"(ROADMAP queue 1: {item})")
+
+    def calc_coeffs(self, starttime=None, endtime=None, resume=False):
+        """Fit every record in the file (optionally a time window), batched
+        in record chunks (reference flow, interpolate.py:472-579).  With
+        resume=True and an existing partial output file, completed chunks
+        are skipped."""
+        self._check_supported()
+        with self.timer.phase("reg_matrices"):
+            logger.info(
+                "Evaluating Regularization matricies.  This may take a few minutes."
+            )
+            reg_mats_dict = self._reg_matrices()
+            names = self.regularization_list
+            nb = self.model.nbasis
+            reg_mats = (np.stack([reg_mats_dict[r] for r in names]) if names
+                        else np.zeros((0, nb, nb)))
+
+        with self.timer.phase("read_datafile"):
+            utime, lat, lon, alt, value, error = self.read_datafile(self.filename)
+
+        with self.timer.phase("compute_hull"):
+            self.compute_hull(lat, lon, alt)
+
+        if starttime and endtime:
+            epoch = dt.datetime(1970, 1, 1)  # naive UTC
+            idx = np.argwhere(
+                (utime[:, 0] >= (starttime - epoch).total_seconds())
+                & (utime[:, 1] <= (endtime - epoch).total_seconds())
+            ).flatten()
+            utime = utime[idx, :]
+            value = value[idx]
+            error = error[idx]
+
+        nrec = value.shape[0]
+        method, manual_params = self._resolve_method(names)
+
+        with self.timer.phase("design_matrix"):
+            # basis() widens the Legendre tables to the data's colatitudes
+            A = self.model.basis(lat, lon, alt)
+
+        writer = None
+        start0 = 0
+        self._flushed_output = None
+        if self.outputfilename:
+            # per-chunk flush whenever an output file is configured: the run
+            # is checkpointed, and saveh5() becomes a metadata-only finalize
+            writer = self._make_writer(nrec, fresh=not resume)
+            if resume:
+                start0 = writer.nrec_done
+                if start0:
+                    logger.info("resuming at record %d / %d", start0, nrec)
+        try:
+            C_all, dC_all, c2_all, rp_all = self._run_fit_pipeline(
+                value, error, A, reg_mats, method, manual_params, utime,
+                writer=writer, start0=start0)
+        finally:
+            if writer is not None:
+                writer.close()
+        if writer is not None:
+            self._flushed_output = self.outputfilename
+
+        self.time = utime
+        self.Coeffs = C_all
+        self.Covariance = dC_all
+        self.chi_sq = c2_all
+        self.reg_params = rp_all
+
+        nvalid = np.isfinite(value).sum(axis=1)
+        fit_quality_report(c2_all, nvalid, rp_all, names)
+
+    def _resolve_method(self, names):
+        """Reference method dispatch incl. the py3 prompt fix
+        (interpolate.py:383-407: asked once per regularization type)."""
+        method = self.reg_method
+        manual_params = None
+        if method == "manual":
+            manual_params = [regparam_mod.manual_reg_param(r) for r in names]
+        elif method == "prompt":
+            manual_params = [
+                float(input("Enter {} regularization parameter: ".format(r)))
+                for r in names
+            ]
+            method = "manual"
+        return method, manual_params
+
+    def _run_fit_pipeline(self, value, error, A_np, reg_mats, method,
+                          manual_params, utime, writer=None, start0=0):
+        """Fit record chunks of ``chunk_size`` (default min(nrec, 128))
+        records in turn; returns host (C_all, dC_all, c2_all, rp_all)."""
+        names = self.regularization_list
+        nrec = value.shape[0]
+        nb = self.model.nbasis
+        chunk = self.config.tpu.chunk_size or min(nrec, 128) or 1
+
+        C_all = np.zeros((nrec, nb))
+        dC_all = np.empty((nrec, nb, nb))  # every row is assigned below
+        c2_all = np.zeros(nrec)
+        rp_all = np.zeros((nrec, len(names)))
+        if writer is not None and start0 > 0:
+            C_all[:start0] = writer.f["Coeffs/C"][:start0]
+            dC_all[:start0] = writer.f["Coeffs/dC"][:start0]
+            c2_all[:start0] = writer.f["FitParams/chi2"][:start0]
+            if names:
+                rp_all[:start0] = writer.f["FitParams/reg_params"][:start0]
+
+        with self.timer.phase("fit_records"):
+            # fit-constant inputs go to the device once
+            A_d = torch.as_tensor(A_np, dtype=torch.float64, device=self.device)
+            R_d = torch.as_tensor(reg_mats, dtype=torch.float64,
+                                  device=self.device)
+            for s in range(start0, nrec, chunk):
+                e = min(s + chunk, nrec)
+                res = fit_records(
+                    value[s:e], error[s:e], A_d, R_d, method=method,
+                    manual_params=manual_params,
+                    regparam_mode=self.config.tpu.regparam_mode,
+                    device=self.device)
+                C_all[s:e], dC_all[s:e], c2_all[s:e], rp_all[s:e] = (
+                    t.cpu().numpy() for t in res)
+                if writer is not None:
+                    writer.write_chunk(s, utime[s:e], C_all[s:e], dC_all[s:e],
+                                       c2_all[s:e], rp_all[s:e])
+        return C_all, dC_all, c2_all, rp_all
+
+    def _make_writer(self, nrec, fresh=False):
+        meta = dict(
+            reg_list=self.regularization_list,
+            reg_method=self.reg_method,
+            hull_vert=self.hull_vert,
+            raw_filename=self.filename,
+            config_name=os.path.basename(self.configfile) if self.configfile else "",
+            config_path=(
+                os.path.dirname(os.path.abspath(self.configfile))
+                if self.configfile else ""
+            ),
+            config_contents=self.config.raw_text,
+        )
+        return IncrementalCoeffWriter(
+            self.outputfilename, nrec, self.model.nbasis, meta, fresh=fresh
+        )
+
+    def saveh5(self):
+        """Write the coefficient file (reference interpolate.py:671-708).
+
+        When calc_coeffs already flushed this run chunk by chunk to
+        OUTPUTFILENAME, the datasets are on disk and this finalizes the
+        schema in place (drops the checkpoint counter); otherwise it writes
+        the whole file.  Mutating Coeffs/Covariance between calc_coeffs and
+        saveh5 voids the in-place path: set self._flushed_output = None
+        first to force a full rewrite."""
+        if getattr(self, "_flushed_output", None) == self.outputfilename \
+                and self.outputfilename:
+            finalize_checkpoint(self.outputfilename)
+            return
+        name = os.path.basename(self.configfile) if self.configfile else ""
+        path = (
+            os.path.dirname(os.path.abspath(self.configfile))
+            if self.configfile else ""
+        )
+        save_coeff_file(
+            self.outputfilename,
+            self.time,
+            self.Coeffs,
+            self.Covariance,
+            self.chi_sq,
+            self.hull_vert,
+            self.regularization_list,
+            self.reg_method,
+            self.filename,
+            name,
+            path,
+            self.config.raw_text,
+            reg_params=self.reg_params,
+        )

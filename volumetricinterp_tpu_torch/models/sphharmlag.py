@@ -1,0 +1,384 @@
+"""Spherical-cap-harmonic x weighted-Laguerre basis model, host float64.
+
+The reference's default model (models/sphharmlag.py): the 3-D basis is
+
+    B_n(z, theta, phi) = e^{-z/2} L_k(z) * K_vm trig(|m| phi) * P_nu(l)^m(cos theta)
+
+with n -> (k, l, m) per the index map at models/sphharmlag.py:79-99, the
+Thebault nu(l) approximation at :101-115, and the cap coordinate transform
+at :324-359.  SIGNED m is passed to the Legendre function as the reference
+does at :141 (P_nu^{-|m|} through the Gamma-ratio connection).
+
+This is the host half of ``volumetricinterp_tpu/models/sphharmlag.py``:
+the design matrix is evaluated in exact float64 numpy from Chebyshev
+tables of P_nu^m (tables.py), and the regularization matrices come from
+separable 1-D integral tables combined by outer products, in 'quad' mode
+(host scipy.integrate.quad, identical to the reference) or 'gauss' mode
+(fixed Gauss rules).  Both give bit-identical results to the JAX package,
+which runs the same numpy code.  Dense grids are evaluated by
+ops/grid_eval.py, not here.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+
+from ..config import Config
+from .. import coords, special
+from ..tables import build_legendre_tables, nu_of_l
+from ..quadrature import (
+    composite_legendre,
+    gauss_laguerre,
+    gauss_legendre,
+    geometric_panels,
+)
+
+
+class Model:
+    """Model class fulfilling the reference plugin contract."""
+
+    def __init__(self, config_file):
+        if isinstance(config_file, Config):
+            cfg = config_file
+        else:
+            cfg = Config.from_file(config_file)
+        self.config = cfg
+        if cfg.tpu.basis_impl != "table":
+            raise NotImplementedError(
+                f"BASIS_IMPL = {cfg.tpu.basis_impl!r} is not ported to the "
+                "PyTorch package yet (ROADMAP queue 1: radbasfun and series)")
+
+        self.maxk = cfg.model.maxk
+        self.maxl = cfg.model.maxl
+        self.latcp = cfg.model.latcp
+        self.loncp = cfg.model.loncp
+        self.cap_lim = cfg.model.cap_lim * np.pi / 180.0  # radians
+        self.max_z_int = cfg.model.max_z_int
+        self.nbasis = self.maxk * self.maxl**2
+
+        self._quad_mode = cfg.tpu.quad_mode
+        self._build_index_tables()
+        # Default theta domain for the Legendre tables.  The reference's
+        # transform rotates by +theta0 (docs/PARITY_NOTES.md #1), which maps
+        # the cap CENTER to colatitude 2*theta0, so data colatitudes cluster
+        # there; the domain is sized accordingly and basis() widens it
+        # adaptively if points fall beyond.
+        x0, y0, z0 = coords.np_geodetic2ecef(self.latcp, self.loncp, 0.0)
+        theta0 = float(np.arccos(z0 / np.sqrt(x0**2 + y0**2 + z0**2)))
+        default_domain = min(
+            2.0 * theta0 + cfg.tpu.table_domain_factor * self.cap_lim,
+            np.pi * 0.95,
+        )
+        self.tables = build_legendre_tables(
+            self.maxl,
+            self.cap_lim,
+            theta_max=default_domain,
+            tol=cfg.tpu.table_tol,
+        )
+
+        # reference attribute name kept verbatim (sphharmlag.py:62)
+        self.eval_reg_matricies = {
+            "curvature": self.eval_omega,
+            "0thorder": self.eval_psi,
+        }
+
+    # ------------------------------------------------------------------
+    # static index / scale tables
+    # ------------------------------------------------------------------
+
+    def _build_index_tables(self):
+        import scipy.special as sp
+
+        n = np.arange(self.nbasis)
+        k = n // (self.maxl**2)
+        r = n % (self.maxl**2)
+        l = np.floor(np.sqrt(r)).astype(np.int64)
+        m = r - l * (l + 1)  # signed, in [-l, l]
+        mbar = np.abs(m)
+        nu = nu_of_l(l, self.cap_lim)
+
+        # K_vm (sphharmlag.py:305-321), computed in log space
+        kvm = np.sqrt(
+            (2.0 * nu + 1.0)
+            / (4.0 * np.pi)
+            * np.exp(sp.gammaln(nu - mbar + 1.0) - sp.gammaln(nu + mbar + 1.0))
+        )
+        kvm = np.where(mbar != 0, kvm * np.sqrt(2.0), kvm)
+
+        # P_nu^{-mbar} = (-1)^mbar G(nu-mbar+1)/G(nu+mbar+1) P_nu^{+mbar}
+        ratio = np.exp(sp.gammaln(nu - mbar + 1.0) - sp.gammaln(nu + mbar + 1.0))
+
+        self._k = k
+        self._l = l
+        self._m = m
+        self._mbar = mbar
+        self._nu = nu
+        self._kvm = kvm
+        self._negm_scale = np.where(m < 0, ((-1.0) ** mbar) * ratio, 1.0)
+        # shift-0 table column per basis function
+        self._col_0 = 3 * (l * (l + 1) // 2 + mbar) + 1
+        self._is_cos = (m >= 0).astype(np.float64)
+
+    def transform_coord(self, gdlat, gdlon, gdalt):
+        """Geodetic -> (z, theta, phi) cap coordinates (sphharmlag.py:324-359),
+        host float64."""
+        return coords.np_geodetic_to_cap(gdlat, gdlon, gdalt, self.latcp,
+                                         self.loncp)
+
+    # ------------------------------------------------------------------
+    # design matrix
+    # ------------------------------------------------------------------
+
+    def ensure_theta_domain(self, theta_max_needed: float):
+        """Rebuild the Legendre tables if a larger theta domain is needed."""
+        margin = 1.05 * float(theta_max_needed)
+        if margin > self.tables.theta_max:
+            self.tables = build_legendre_tables(
+                self.maxl,
+                self.cap_lim,
+                theta_max=min(margin, np.pi * 0.95),
+                tol=self.config.tpu.table_tol,
+            )
+
+    def _coords_for(self, gdlat, gdlon, gdalt):
+        """Flat host-f64 cap coordinates; widens the tables if needed."""
+        z, t, p = coords.np_geodetic_to_cap(
+            np.asarray(gdlat, dtype=np.float64).ravel(),
+            np.asarray(gdlon, dtype=np.float64).ravel(),
+            np.asarray(gdalt, dtype=np.float64).ravel(),
+            self.latcp, self.loncp)
+        tmax = float(np.max(t)) if t.size else 0.0
+        if np.isfinite(tmax):
+            self.ensure_theta_domain(tmax)
+        return z, t, p
+
+    def _design_np(self, z, t, p):
+        """Host float64 design matrix [npoints, nbasis] at cap coordinates:
+        Chebyshev Clenshaw for the Legendre part, Laguerre recurrence for
+        the radial part, cos/sin(m phi) for the azimuth."""
+        from ..tables import np_cheb_clenshaw
+
+        tbl = self.tables
+        u = 2.0 * t / tbl.theta_max - 1.0
+        P = np_cheb_clenshaw(u, tbl.coef_np)
+        Pn = P[:, self._col_0] * self._negm_scale[None, :]
+
+        lag = special.np_laguerre_all(self.maxk - 1, z)
+        radial = np.exp(-0.5 * z)[:, None] * lag
+
+        mb = np.arange(self.maxl, dtype=np.float64)
+        cosm = np.cos(p[:, None] * mb[None, :])
+        sinm = np.sin(p[:, None] * mb[None, :])
+        trig = (
+            cosm[:, self._mbar] * self._is_cos[None, :]
+            + sinm[:, self._mbar] * (1.0 - self._is_cos)[None, :]
+        )
+        return radial[:, self._k] * (self._kvm[None, :] * trig) * Pn
+
+    def basis(self, gdlat, gdlon, gdalt):
+        """A[..., nbasis] at geodetic points (reference sphharmlag.py:118-145),
+        shape-preserving over the input dimensionality, host float64."""
+        shape = np.shape(gdlat)
+        z, t, p = self._coords_for(gdlat, gdlon, gdalt)
+        return self._design_np(z, t, p).reshape(shape + (self.nbasis,))
+
+    def grad_basis(self, gdlat, gdlon, gdalt):
+        raise NotImplementedError(
+            "basis gradients are not ported to the PyTorch package yet "
+            "(ROADMAP queue 1: gradients and inverse_transform)")
+
+    # ------------------------------------------------------------------
+    # regularization matrices (separable 1-D integral tables)
+    # ------------------------------------------------------------------
+
+    def _signed_lpmv_host(self, m, v, x, reference_exact):
+        """Host Legendre seed for integrand tables.
+
+        reference_exact=True reproduces scipy.special.lpmv verbatim
+        (including its negative-m underflow-to-zero at large nu, which the
+        reference inherits at models/sphharmlag.py:205,231); otherwise the
+        accurate Gamma-ratio path is used.
+        """
+        import scipy.special as sp
+
+        if reference_exact:
+            return sp.lpmv(m, v, x)
+        return special.lpmv_host(m, v, x)
+
+    def _horizontal_indices(self):
+        """(l, m, nu) of the horizontal index j = l(l+1)+m in [0, maxl^2),
+        in basis order for one k-slab."""
+        l = self._l[: self.maxl**2]
+        m = self._m[: self.maxl**2]
+        nu = self._nu[: self.maxl**2]
+        return l, m, nu
+
+    def _iz_table(self, power: int) -> np.ndarray:
+        """Iz[ki, kj] = int e^{-z} L_ki L_kj z^power dz over (0, max_z_int)."""
+        import scipy.integrate
+        import scipy.special as sp
+        import warnings
+
+        K = self.maxk
+        iz = np.zeros((K, K))
+        if self._quad_mode == "quad":
+            for ki in range(K):
+                for kj in range(ki, K):
+                    f = lambda zz: (
+                        np.exp(-zz)
+                        * sp.eval_laguerre(ki, zz)
+                        * sp.eval_laguerre(kj, zz)
+                        * zz**power
+                    )
+                    with warnings.catch_warnings():
+                        warnings.simplefilter("ignore")
+                        val = scipy.integrate.quad(f, 0.0, self.max_z_int)[0]
+                    iz[ki, kj] = iz[kj, ki] = val
+            return iz
+        # gauss mode
+        if math.isinf(self.max_z_int):
+            zq, wq = gauss_laguerre(2 * K + 8)  # weight e^{-z} folded in
+            lagv = np.stack(
+                [np.polynomial.laguerre.lagval(zq, np.eye(K)[k]) for k in range(K)]
+            )
+            zp = zq.astype(np.float64) ** power
+            iz = np.einsum("q,iq,jq,q->ij", wq, lagv, lagv, zp)
+        else:
+            zq, wq = gauss_legendre(128, 0.0, self.max_z_int)
+            lagv = np.stack(
+                [np.polynomial.laguerre.lagval(zq, np.eye(K)[k]) for k in range(K)]
+            )
+            iz = np.einsum(
+                "q,iq,jq,q->ij", wq * np.exp(-zq), lagv, lagv, zq**power
+            )
+        return iz
+
+    def _az_host(self, v, m, phi):
+        import scipy.special as sp
+
+        kv = np.sqrt(
+            (2.0 * v + 1.0)
+            / (4.0 * np.pi)
+            * np.exp(sp.gammaln(v - abs(m) + 1.0) - sp.gammaln(v + abs(m) + 1.0))
+        )
+        if m != 0:
+            kv = kv * np.sqrt(2.0)
+        return kv * (np.sin(abs(m) * phi) if m < 0 else np.cos(abs(m) * phi))
+
+    def _ip_table(self) -> np.ndarray:
+        """Ip[j, j'] = int_0^{2pi} Az_i Az_j dphi (analytic in gauss mode)."""
+        import scipy.integrate
+
+        l, m, nu = self._horizontal_indices()
+        J = self.maxl**2
+        ip = np.zeros((J, J))
+        if self._quad_mode == "quad":
+            for i in range(J):
+                for j in range(i, J):
+                    f = lambda pp: self._az_host(nu[i], m[i], pp) * self._az_host(
+                        nu[j], m[j], pp
+                    )
+                    val = scipy.integrate.quad(f, 0.0, 2.0 * np.pi)[0]
+                    ip[i, j] = ip[j, i] = val
+            return ip
+        # analytic: orthogonality of cos/sin over the full period
+        import scipy.special as sp
+
+        kv = np.sqrt(
+            (2.0 * nu + 1.0)
+            / (4.0 * np.pi)
+            * np.exp(sp.gammaln(nu - np.abs(m) + 1.0) - sp.gammaln(nu + np.abs(m) + 1.0))
+        )
+        kv = np.where(m != 0, kv * np.sqrt(2.0), kv)
+        same = (m[:, None] == m[None, :]).astype(np.float64)
+        fac = np.where(m == 0, 2.0 * np.pi, np.pi)
+        ip = same * kv[:, None] * kv[None, :] * fac[None, :]
+        return ip
+
+    def _omega_t_integrand_host(self, theta, l, m, nu, reference_exact):
+        """The Legendre combination of the curvature theta-integrand for one
+        (l, m): -nu(nu cos^2 + nu + 1) P_nu^m + nu(nu+m) cos P_{nu-1}^m
+        + nu(nu-m+1) cos P_{nu+1}^m   (models/sphharmlag.py:205)."""
+        x = np.cos(theta)
+        P0 = self._signed_lpmv_host(m, nu, x, reference_exact)
+        Pm = self._signed_lpmv_host(m, nu - 1.0, x, reference_exact)
+        Pp = self._signed_lpmv_host(m, nu + 1.0, x, reference_exact)
+        return (
+            -nu * (nu * x**2 + nu + 1.0) * P0
+            + nu * (nu + m) * x * Pm
+            + nu * (nu - m + 1.0) * x * Pp
+        )
+
+    def _it_table(self, kind: str) -> np.ndarray:
+        """It[j, j'] theta-integral table.  kind in {'omega', 'psi'}."""
+        import scipy.integrate
+
+        l, m, nu = self._horizontal_indices()
+        J = self.maxl**2
+        it = np.zeros((J, J))
+
+        if self._quad_mode == "quad":
+            for i in range(J):
+                for j in range(i, J):
+                    if kind == "psi":
+                        f = lambda tt: (
+                            self._signed_lpmv_host(m[i], nu[i], np.cos(tt), True)
+                            * self._signed_lpmv_host(m[j], nu[j], np.cos(tt), True)
+                            * np.sin(tt)
+                        )
+                    else:
+                        f = lambda tt: (
+                            self._omega_t_integrand_host(tt, l[i], m[i], nu[i], True)
+                            * self._omega_t_integrand_host(tt, l[j], m[j], nu[j], True)
+                            / np.sin(tt) ** 3
+                        )
+                    val = scipy.integrate.quad(f, 0.0, self.cap_lim)[0]
+                    it[i, j] = it[j, i] = val
+            return it
+
+        # gauss mode: composite rules; values from accurate host seeds
+        if kind == "psi":
+            tq, wq = composite_legendre(
+                geometric_panels(0.0, self.cap_lim, n_panels=3), 64
+            )
+            vals = np.stack(
+                [
+                    self._signed_lpmv_host(m[i], nu[i], np.cos(tq), False)
+                    for i in range(J)
+                ]
+            )
+            it = np.einsum("q,iq,jq->ij", wq * np.sin(tq), vals, vals)
+        else:
+            tq, wq = composite_legendre(
+                geometric_panels(0.0, self.cap_lim, n_panels=8), 64
+            )
+            vals = np.stack(
+                [
+                    self._omega_t_integrand_host(tq, l[i], m[i], nu[i], False)
+                    for i in range(J)
+                ]
+            )
+            it = np.einsum("q,iq,jq->ij", wq / np.sin(tq) ** 3, vals, vals)
+        return it
+
+    def _assemble(self, iz: np.ndarray, ih: np.ndarray) -> np.ndarray:
+        """Omega/Psi[n, n'] = Iz[k, k'] * Ih[j, j'] via outer gathers."""
+        k = self._k
+        j = self._l * (self._l + 1) + self._m
+        return iz[np.ix_(k, k)] * ih[np.ix_(j, j)]
+
+    def eval_omega(self):
+        """Curvature regularization matrix (reference sphharmlag.py:188-212)."""
+        iz = self._iz_table(power=-2)
+        it = self._it_table("omega")
+        ip = self._ip_table()
+        return self._assemble(iz, it * ip)
+
+    def eval_psi(self):
+        """0th-order regularization matrix (reference sphharmlag.py:215-239)."""
+        iz = self._iz_table(power=2)
+        it = self._it_table("psi")
+        ip = self._ip_table()
+        return self._assemble(iz, it * ip)
