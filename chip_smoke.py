@@ -3,13 +3,18 @@
 
     python3 chip_smoke.py        # from the repository root; needs CUDA + nvcc
 
-Phases, one output line each, any failure exits non-zero:
+Phases, one output line each (phase 3 one per shape), any failure exits
+non-zero:
   1. device   the card (nvidia-smi name and power limit), TF32 off;
-  2. build    nvcc builds csrc/grid_eval.cu (seconds, registers, spills);
+  2. build    nvcc builds, all at once, the kernel instantiation of the
+              production order and those of ORDER_CASES from
+              csrc/grid_eval.cu (seconds, registers, spills of each);
   3. kernel   the grid-evaluation kernel against its plain twin at the
-              production order (MAXK=4, MAXL=6, nbasis=144) on a
-              512x512x32 grid with 8 records: float32 kernel within
-              5e-5 of the sup of the float64 twin, same NaN set; both timed;
+              production order (MAXK=4, MAXL=6, nbasis=144) at the shapes
+              the main path launches (KERNEL_SHAPES): float32 kernel within
+              5e-5 of the sup of the float64 twin, same NaN set; its time,
+              the work the inputs need and the card's bound for that work;
+              then the same check at the ORDER_CASES orders;
   4. fit      the main path's fit half: Interpolate.calc_coeffs in
               exact_grid mode over the first 64 records of the seed-1
               synthetic day, held against the JAX package's CPU float64 fits
@@ -27,10 +32,12 @@ the same classes run on in-memory data (h5py: absent).
 
 import datetime as dt
 import json
+import re
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -91,6 +98,25 @@ WFIELD_MAX_TOL = 0.15
 GRID_TOL = 5e-5  # of the sup, as KERNEL_TOL, plus
 GROSS_TOL = 1e-6  # of the point's gross sum: 16 float32 ulps (see phase 5)
 FINITE_FRAC = 0.2809  # FoV finite fraction of the config-4 grid (BENCH_r05)
+# phase 3's shapes, the kernel launches of the main path: (label, grid
+# axes (nlat, lons, nalt), records, mask).  "fov" is fov_like_mask.
+KERNEL_SHAPES = (
+    ("8.4M x 8", (512, 512, 32), 8, None),  # the first port's timing row
+    ("config-4 x 4 FoV", (512, 512, 128), 4, "fov"),  # an evaluate_records chunk
+    ("config-4 x 1", (512, 512, 128), 1, None),  # Estimate.grid_eval
+    ("keogram 65536 x 512", (256, (262.0,), 256), 512, None),  # a day's meridian
+)
+# (maxl, maxk) orders whose instantiations the production order does not
+# run: no sin branch (maxl 1), maxk bucket 12, one point a thread at one
+# block an SM (maxl 10, maxk 16, four float4s a ceff row).  Each is held
+# against the twin on ORDER_AXES, a ragged point count, with and without
+# its last point (the scalar and the vector path).
+ORDER_CASES = ((1, 1), (2, 9), (10, 16))
+ORDER_AXES, ORDER_NREC = (13, 17, 19), 5
+SITE = (74.72955, 265.09424)  # the synthetic day's radar (io/synth.py)
+# NVIDIA's H100 SXM data sheet: float32 outside the tensor cores, HBM3
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_S = 3.35e12
 
 
 def check(cond, msg):
@@ -113,9 +139,92 @@ def cuda_ms(fn, reps):
 
 
 def grid(nlat, nlon, nalt):
-    return np.meshgrid(np.linspace(74.0, 82.0, nlat),
-                       np.linspace(252.0, 272.0, nlon),
+    """The product grid: nlat x nlon x nalt over the FoV's box; nlon may be
+    a sequence of longitudes (a meridian keogram)."""
+    lons = np.linspace(252.0, 272.0, nlon) if np.isscalar(nlon) else nlon
+    return np.meshgrid(np.linspace(74.0, 82.0, nlat), lons,
                        np.linspace(1.0e5, 6.0e5, nalt))
+
+
+def fov_like_mask(lat, lon, alt, frac=FINITE_FRAC):
+    """Points inside a cone about the vertical at the synthetic radar's
+    site, opened so that ``frac`` of the points are inside: the FoV's shape
+    (a cone from the ground, entered along altitude, the fastest grid axis,
+    in one run) at the config-4 grid's finite fraction, without the host
+    hull test.  A sphere of radius RE is close enough for a mask."""
+    from volumetricinterp_tpu_torch.constants import RE
+
+    def unit(la, lo):
+        la, lo = torch.deg2rad(la), torch.deg2rad(lo)
+        return torch.stack([torch.cos(la) * torch.cos(lo),
+                            torch.cos(la) * torch.sin(lo), torch.sin(la)], -1)
+
+    up = unit(*torch.tensor(SITE, dtype=torch.float64, device=lat.device))
+    v = (RE + alt.double())[:, None] * unit(lat.double(), lon.double()) - RE * up
+    cos_off = (v @ up) / v.norm(dim=-1)
+    k = int(round((1.0 - frac) * cos_off.numel()))
+    return cos_off > cos_off.sort().values[k]
+
+
+def kernel_work(ev, npts, nrec, n_live, masked):
+    """(flop, bytes) the evaluation needs at these inputs, whatever the
+    implementation: per live point (in the band and the mask) the pair
+    series, one FMA per coefficient each pair's degree keeps plus degree - 2
+    for the T_d recurrence; per live point-record the contraction, one FMA
+    per basis function (the [points x nbasis] x [nbasis x nrec] product);
+    every input byte read once (lat/lon/alt float32, the uint8 mask, the
+    band table and the records' coefficients) and every output written
+    once."""
+    series = int(np.sum(ev.pair_degree)) + max(ev.degree - 2, 0)
+    flop = 2 * n_live * (series + nrec * ev.model.nbasis)
+    nbytes = (npts * (12 + int(masked) + 4 * nrec)
+              + 4 * ev.degree * ev.npairs + 4 * nrec * 2 * ev.npairs * ev.maxk)
+    return flop, nbytes
+
+
+def bound_ms(flop, nbytes):
+    """The least time the card could take: (ms, what sets it)."""
+    t_ops, t_bytes = flop / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def model_cfg(order=None):
+    """MODEL_CFG, at another (maxl, maxk) when ``order`` is given."""
+    if order is None:
+        return MODEL_CFG
+    return MODEL_CFG.replace("MAXK = 4", f"MAXK = {order[1]}").replace(
+        "MAXL = 6", f"MAXL = {order[0]}")
+
+
+def kernel_inputs(axes, nrec, mask, device, seed=0, order=None):
+    """One phase 3 case, at the production order unless ``order`` is
+    given: (evaluator, float32 and float64 points, float32 and float64
+    folded records, mask or None)."""
+    model = Model(Config.from_text(model_cfg(order)))
+    glat, glon, galt = grid(*axes)
+    _, t, _ = np_geodetic_to_cap(glat.ravel(), glon.ravel(), galt.ravel(),
+                                 model.latcp, model.loncp)
+    ev = GridEvaluator(model, (t.min(), t.max()), device=device)
+    Cs = np.random.default_rng(seed).normal(size=(nrec, model.nbasis)) * 1e11
+    pts64 = [torch.as_tensor(a.ravel(), dtype=torch.float64, device=device)
+             for a in (glat, glon, galt)]
+    pts32 = [p.float() for p in pts64]
+    inside = fov_like_mask(*pts64) if mask == "fov" else None
+    return (ev, pts32, pts64, ev.fold_coeffs(Cs),
+            ev.fold_coeffs(Cs, torch.float64), inside)
+
+
+def held_against_twin(out, ref, what):
+    """Max |kernel - float64 twin| of the live points, checked against
+    KERNEL_TOL x sup; the NaN sets must be equal."""
+    nan, nan_ref = torch.isnan(out), torch.isnan(ref)
+    check(torch.equal(nan, nan_ref), f"{what}: kernel and twin NaN sets differ")
+    ok = ~nan_ref
+    sup = float(ref[ok].abs().max())
+    err = float((out.double() - ref)[ok].abs().max())
+    check(err <= KERNEL_TOL * sup,
+          f"{what}: kernel error {err:.3e} > {KERNEL_TOL} x sup {sup:.3e}")
+    return err, sup
 
 
 def phase_device():
@@ -132,68 +241,117 @@ def phase_device():
           f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
 
 
-def phase_build():
-    info = grid_eval_cuda.build()
-    log = Path(info["path"]).with_suffix(".log")  # beside the library
-    log.write_text(info["log"])
-    regs = [int(w) for line in info["log"].splitlines() if "Used" in line
+def ptxas_usage(log):
+    """(registers, bytes of spill stores) of the kernel in an nvcc -v log."""
+    regs = [int(w) for line in log.splitlines() if "Used" in line
             for w, nxt in zip(line.split(), line.split()[1:])
             if nxt.startswith("registers")]
-    spills = sum(int(line.split()[line.split().index("bytes") - 1])
-                 for line in info["log"].splitlines() if "spill stores" in line)
-    print(f"phase 2 build: {info['seconds']:.1f} s nvcc, {len(regs)} kernel "
-          f"instantiations, max {max(regs, default=0)} registers, {spills} "
-          f"bytes of spill stores ({log.relative_to(ROOT)})", flush=True)
+    spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill stores", log))
+    return max(regs, default=0), spills
 
 
-def phase_kernel(device="cuda", shape=(512, 512, 32), nrec=8, reps=20):
-    """Kernel vs plain twin; returns the kernel's JSON entry."""
+def phase_build():
+    """Builds the instantiations of the production order and of
+    ORDER_CASES, one nvcc each, all started together (no later phase
+    builds another)."""
     model = Model(Config.from_text(MODEL_CFG))
-    glat, glon, galt = grid(*shape)
-    _, t, _ = np_geodetic_to_cap(glat.ravel(), glon.ravel(), galt.ravel(),
-                                 model.latcp, model.loncp)
-    ev = GridEvaluator(model, (t.min(), t.max()), device=device)
-    Cs = np.random.default_rng(0).normal(size=(nrec, model.nbasis)) * 1e11
-    pts32 = [torch.as_tensor(a.ravel(), dtype=torch.float32, device=device)
-             for a in (glat, glon, galt)]
-    pts64 = [torch.as_tensor(a.ravel(), dtype=torch.float64, device=device)
-             for a in (glat, glon, galt)]
-    ceff32, ceff64 = ev.fold_coeffs(Cs), ev.fold_coeffs(Cs, torch.float64)
-    # every 7th point masked out, to hold the NaN sets against each other
-    inside = torch.arange(glat.size, device=device) % 7 != 0
-
-    out = grid_eval_cuda.eval_records(*pts32, ceff32, ev, inside)
-    ref = grid_eval_cuda.eval_records_plain(*pts64, ceff64, ev, inside)
-    nan, nan_ref = torch.isnan(out), torch.isnan(ref)
-    check(torch.equal(nan, nan_ref), "kernel and twin NaN sets differ")
-    check(int(nan.sum()) == nrec * int((~inside).sum()), "unexpected NaNs")
-    ok = ~nan_ref
-    sup = float(ref[ok].abs().max())
-    err = float((out.double() - ref)[ok].abs().max())
-    check(err <= KERNEL_TOL * sup,
-          f"kernel error {err:.3e} > {KERNEL_TOL} x sup {sup:.3e}")
-
-    if device == "cuda":
-        ms = cuda_ms(lambda: grid_eval_cuda.eval_records(*pts32, ceff32, ev),
-                     reps)
-        plain_ms = cuda_ms(lambda: grid_eval_cuda.eval_records_plain(
-            *pts32, ceff32, ev), max(1, reps // 10))
-        plain64_ms = cuda_ms(lambda: grid_eval_cuda.eval_records_plain(
-            *pts64, ceff64, ev), 1)
-    else:
-        ms = plain_ms = plain64_ms = float("nan")
-    npts = glat.size
-    print(f"phase 3 kernel: {npts} points x {nrec} records, degree "
-          f"{ev.degree}, max|kernel - f64 twin| = {err:.4e} = "
-          f"{err / sup:.3e} of sup {sup:.4e} (bar {KERNEL_TOL}), NaN sets equal; "
-          f"kernel {ms:.4f} ms ({npts * nrec / ms * 1e3:.4e} point-records/s), "
-          f"f32 twin {plain_ms:.4f} ms, f64 twin {plain64_ms:.4f} ms",
+    cfgs = [grid_eval_cuda.kernel_config(model.maxl, model.maxk)]
+    cfgs += [grid_eval_cuda.kernel_config(*o) for o in ORDER_CASES]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(cfgs)) as pool:
+        infos = list(pool.map(grid_eval_cuda.build, cfgs))
+    wall = time.perf_counter() - t0
+    for info in infos:
+        log = Path(info["log"])
+        check(log.exists(), f"no ptxas log beside {info['path']}")
+        regs, spills = ptxas_usage(log.read_text())
+        cfg = info["config"]
+        print(f"phase 2 build: maxl {cfg.maxl}, maxk bucket {cfg.maxkb}, "
+              f"{cfg.pt} points a thread, {cfg.minblocks} blocks an SM: "
+              f"{info['seconds']:.1f} s nvcc, {regs} registers, {spills} "
+              f"bytes of spill stores ({log.relative_to(ROOT)})", flush=True)
+    print(f"phase 2 build: {len(infos)} instantiations in {wall:.1f} s",
           flush=True)
-    return {"name": "grid_eval_records", "route": "cuda",
-            "source": "volumetricinterp_tpu_torch/csrc/grid_eval.cu",
-            "replaces": "volumetricinterp_tpu/ops/grid_eval_pallas.py:94",
-            "launches": None, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms}
+
+
+def phase_kernel(device="cuda", shapes=KERNEL_SHAPES, reps=20):
+    """Kernel vs plain twin at each shape; returns the kernel's JSON entry,
+    with the times and bound of the first shape."""
+    cuda = device == "cuda"
+    entry = None
+    for label, axes, nrec, mask in shapes:
+        ev, pts32, pts64, ceff32, ceff64, inside = kernel_inputs(
+            axes, nrec, mask, device)
+        npts = pts32[0].numel()
+        out = grid_eval_cuda.eval_records(*pts32, ceff32, ev, inside)
+        ref = grid_eval_cuda.eval_records_plain(*pts64, ceff64, ev, inside)
+        err, sup = held_against_twin(out, ref, label)
+        n_live = int((~torch.isnan(ref[0])).sum())
+        if entry is None:
+            # every 7th point masked out as well: point groups that are
+            # partly masked keep the NaN set of the twin
+            seventh = torch.arange(npts, device=device) % 7 != 0
+            ref7 = torch.where(seventh, ref, float("nan"))
+            out7 = grid_eval_cuda.eval_records(*pts32, ceff32, ev, seventh)
+            held_against_twin(out7, ref7, f"{label}, every 7th point masked")
+            check(int(torch.isnan(out7).sum()) == nrec * int((~seventh).sum()),
+                  "unexpected NaNs")
+            # the kernel's scalar path: an odd count at a 4-byte offset
+            tail = grid_eval_cuda.eval_records(*[p[1:] for p in pts32], ceff32,
+                                               ev, seventh[1:])
+            held_against_twin(tail, ref7[:, 1:], f"{label}, points 1..")
+            # a point's arithmetic does not depend on its group (the CPU
+            # twin's matmuls do, so this holds the kernel only)
+            check(not cuda or torch.equal(
+                tail.view(torch.int32), out7[:, 1:].contiguous().view(torch.int32)),
+                f"{label}: points 1.. differ from the same points in the grid")
+        flop, nbytes = kernel_work(ev, npts, nrec, n_live, inside is not None)
+        b_ms, b_by = bound_ms(flop, nbytes)
+        ms = cuda_ms(lambda: grid_eval_cuda.eval_records(
+            *pts32, ceff32, ev, inside), reps) if cuda else float("nan")
+        line = (f"phase 3 kernel, {label}: {npts} points x {nrec} records"
+                f"{', FoV-like mask' if inside is not None else ''}, degree "
+                f"{ev.degree}, {n_live} live points: kernel {ms:.4f} ms "
+                f"({npts * nrec / ms * 1e3:.4e} point-records/s); work "
+                f"{flop:.4e} flop, {nbytes:.4e} bytes, bound {b_ms:.4f} ms "
+                f"({b_by}), share {b_ms / ms:.3f}; max|kernel - f64 twin| = "
+                f"{err:.4e} = {err / sup:.3e} of sup {sup:.4e} (bar "
+                f"{KERNEL_TOL}), NaN sets equal")
+        if entry is None:
+            plain_ms = cuda_ms(lambda: grid_eval_cuda.eval_records_plain(
+                *pts32, ceff32, ev, inside), 2) if cuda else float("nan")
+            plain64_ms = cuda_ms(lambda: grid_eval_cuda.eval_records_plain(
+                *pts64, ceff64, ev, inside), 1) if cuda else float("nan")
+            line += f"; f32 twin {plain_ms:.4f} ms, f64 twin {plain64_ms:.4f} ms"
+            entry = {"name": "grid_eval_records", "route": "cuda",
+                     "source": "volumetricinterp_tpu_torch/csrc/grid_eval.cu",
+                     "replaces": "volumetricinterp_tpu/ops/grid_eval_pallas.py:94",
+                     "launches": None, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "share": b_ms / ms,
+                     # no single PyTorch call computes this function
+                     "library_ms": None}
+        print(line, flush=True)
+    for order in ORDER_CASES:
+        ev, pts32, pts64, ceff32, ceff64, inside = kernel_inputs(
+            ORDER_AXES, ORDER_NREC, None, device, order=order)
+        npts = pts32[0].numel()
+        seventh = torch.arange(npts, device=device) % 7 != 0
+        ref = torch.where(seventh, grid_eval_cuda.eval_records_plain(
+            *pts64, ceff64, ev), float("nan"))
+        errs = []
+        for n in (npts, npts - 1):  # odd: scalar path; even: vector path
+            out = grid_eval_cuda.eval_records(*[p[:n] for p in pts32], ceff32,
+                                              ev, seventh[:n])
+            errs.append(held_against_twin(out, ref[:, :n].contiguous(),
+                                          f"order {order}, {n} points"))
+        cfg = grid_eval_cuda.kernel_config(*order)
+        print(f"phase 3 kernel, order (maxl, maxk) = {order}: {npts} and "
+              f"{npts - 1} points x {ORDER_NREC} records, every 7th masked, "
+              f"degree {ev.degree}, {cfg.pt} points a thread: max|kernel - "
+              f"f64 twin| = " + ", ".join(f"{e / s:.3e}" for e, s in errs)
+              + f" of sup (bar {KERNEL_TOL}), NaN sets equal", flush=True)
+    return entry
 
 
 def phase_fit(workdir, device="cuda", nwin=64, day=DAY):

@@ -72,20 +72,31 @@ def test_fold_coeffs_matches_jax(setup):
             got[r].numpy(), np.asarray(jev.fold_coeffs(C[r]))[:, :ev.npairs])
 
 
-def test_f32_twin_matches_pallas_interpret(setup):
+def test_f32_twin_matches_pallas_interpret(setup, small_config_text):
     """float32 twin vs the TPU kernel in interpret mode on the same band
-    table: within the float32 theta-resolution envelope, same NaN set."""
+    table: within the float32 theta-resolution envelope, same NaN set; at
+    the production order and at two small ones (maxk not a multiple of 4,
+    as the kernel's packed layout pads it)."""
     jm, tm, band, (lat, lon, alt), C = setup
-    jev = JEval(jm, band, impl="pallas")
-    ev = GridEvaluator(tm, device="cpu", table=from_jax_evaluator(_fields(jev)))
-    with pltpu.force_tpu_interpret_mode():
-        ref = np.asarray(jev(C[0], lat, lon, alt))
-    out = ev(C[0], lat, lon, alt).numpy()
-    assert out.dtype == np.float32
-    np.testing.assert_array_equal(np.isnan(out), np.isnan(ref))
-    assert np.isnan(out[0]) and np.isfinite(out[1:]).all()
-    ok = np.isfinite(ref)
-    assert np.max(np.abs(out[ok] - ref[ok])) <= 5e-5 * np.max(np.abs(ref[ok]))
+    orders = [(jm, tm, C[0])]
+    for maxl, maxk in ((1, 1), (2, 5)):
+        text = small_config_text.replace("MAXK = 2", f"MAXK = {maxk}").replace(
+            "MAXL = 3", f"MAXL = {maxl}")
+        m = TModel(TConfig.from_text(text))
+        c = np.random.default_rng(maxl).normal(size=m.nbasis) * 1e11
+        orders.append((JModel(JConfig.from_text(text)), m, c))
+    for jmod, tmod, c in orders:
+        jev = JEval(jmod, band, impl="pallas")
+        ev = GridEvaluator(tmod, device="cpu",
+                           table=from_jax_evaluator(_fields(jev)))
+        with pltpu.force_tpu_interpret_mode():
+            ref = np.asarray(jev(c, lat, lon, alt))
+        out = ev(c, lat, lon, alt).numpy()
+        assert out.dtype == np.float32
+        np.testing.assert_array_equal(np.isnan(out), np.isnan(ref))
+        assert np.isnan(out[0]) and np.isfinite(out[1:]).all()
+        ok = np.isfinite(ref)
+        assert np.max(np.abs(out[ok] - ref[ok])) <= 5e-5 * np.max(np.abs(ref[ok]))
 
 
 def test_f64_twin_matches_xla_f64(setup):

@@ -102,11 +102,11 @@ class GridEvaluator:
         self.npairs = len(self.pair_degree)
         self.maxl, self.maxk = model.maxl, model.maxk
         self.rot = coords.cap_rotation(model.latcp, model.loncp)
-        # kernel inputs, on the device once
+        # the band table on the device once, and the kernel's packed copy
         self.coef_device = torch.as_tensor(
             self.table.coef, dtype=dtype, device=self.device).contiguous()
-        self.pair_degree_device = torch.as_tensor(
-            self.pair_degree, dtype=torch.int32, device=self.device)
+        self.coef_packed = grid_eval_cuda.pack_coef(self.coef_device,
+                                                    self.pair_degree)
 
         self._scale = model._kvm * model._negm_scale
         self._k_n = model._k
