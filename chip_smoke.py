@@ -21,16 +21,29 @@ non-zero:
               of the same records (tests/oracle/day1000_seed1_oracle.npz,
               exact mode; ..._window64_exact_grid.npz, exact_grid mode) in
               chi2 and the W-weighted field residual;
-  5. product  the main path's product half: Estimate.evaluate_records of 8
-              records on the 512x512x128 grid with the FoV mask, through the
-              kernel (launch count > 0), FoV finite fraction 0.2809 +- 0.001,
-              and grid_eval against the float64 point API.
+  4b. fit     the shipped default, REGPARAM_MODE = exact, over the whole
+              1000-record day (through cli.main when h5py is installed):
+              the oracle's NaN set, no negative chi2 (and how many records
+              reported the whitened chi2 for a negative one), chi2 against
+              the exact oracle and the first 64 records' W-weighted field
+              against ..._window64_exact.npz; day and fit_records seconds,
+              eigendecompositions a record and their seconds alone;
+  4c. fit     the 64-record window in fast mode and in gcv (exact) mode,
+              each against its own window oracle (..._window64_fast.npz,
+              ..._window64_gcv.npz): NaN set and W-weighted field;
+  5. product  the main path's product half on phase 4b's coefficients:
+              Estimate.evaluate_records of 8 records on the 512x512x128
+              grid with the FoV mask, through the kernel (launch count >
+              0), FoV finite fraction 0.2809 +- 0.001, and grid_eval
+              against the float64 point API.
 Then a JSON line with the kernels, and last {"ok": true, "device": ...}.
 The coefficient file goes through h5py when it is installed; otherwise
 the same classes run on in-memory data (h5py: absent).
 """
 
+import contextlib
 import datetime as dt
+import io
 import json
 import re
 import subprocess
@@ -47,13 +60,16 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 from volumetricinterp_tpu_torch import Estimate, Interpolate  # noqa: E402
+from volumetricinterp_tpu_torch.cli import main as cli_main  # noqa: E402
 from volumetricinterp_tpu_torch.config import Config  # noqa: E402
 from volumetricinterp_tpu_torch.coords import np_geodetic_to_cap  # noqa: E402
 from volumetricinterp_tpu_torch.io.amisr import qc_datasets  # noqa: E402
+from volumetricinterp_tpu_torch.io.coeffs import load_coeff_file  # noqa: E402
 from volumetricinterp_tpu_torch.io.synth import (  # noqa: E402
     synthetic_amisr_datasets, write_synthetic_amisr)
 from volumetricinterp_tpu_torch.models.sphharmlag import Model  # noqa: E402
-from volumetricinterp_tpu_torch.ops import grid_eval_cuda  # noqa: E402
+from volumetricinterp_tpu_torch.ops import fit as ops_fit  # noqa: E402
+from volumetricinterp_tpu_torch.ops import grid_eval_cuda, solve  # noqa: E402
 from volumetricinterp_tpu_torch.ops.grid_eval import GridEvaluator  # noqa: E402
 
 EPOCH = dt.datetime(1970, 1, 1)
@@ -69,16 +85,15 @@ LATCP = 78
 LONCP = 262
 [TPU]
 QUAD_MODE = gauss
-REGPARAM_MODE = exact_grid
 """
-# scripts/day_check.py's fit, in exact_grid mode
+# scripts/day_check.py's fit, in a given method and mode
 FIT_CFG = """
 [DEFAULT]
 FILENAME = {raw}
 OUTPUTFILENAME = {out}
 REGULARIZATION_LIST = 0thorder
-REGULARIZATION_METHOD = chi2
-""" + MODEL_CFG
+REGULARIZATION_METHOD = {method}
+""" + MODEL_CFG + "REGPARAM_MODE = {mode}\n"
 DAY = dict(nrec=1000, seed=1, nan_frac=0.03, bad_frac=0.01, t0=1480286700.0,
            cadence=60.0)
 KERNEL_TOL = 5e-5  # of the sup: float32 theta resolution (tests/test_grid_eval.py)
@@ -90,7 +105,9 @@ KERNEL_TOL = 5e-5  # of the sup: float32 theta resolution (tests/test_grid_eval.
 # committed exact oracle, chi2 rel median 2.7e-2 max 0.17 (|dlog10 alpha|
 # median 0.59, max 57); its exact_grid mode vs its exact mode, W-weighted
 # field rel median 3.1e-2 max 8.5e-2.  PARITY_NOTES #4 gives 0.30 as the
-# day-scale worst-record chi2 bound.
+# day-scale worst-record chi2 bound.  Phases 4b and 4c hold each setting
+# against the JAX package's CPU float64 fit in the same setting
+# (scripts/window_oracle.py) with the same bars.
 CHI2_MEDIAN_TOL = 0.05
 CHI2_MAX_TOL = 0.30
 WFIELD_MEDIAN_TOL = 0.05
@@ -117,6 +134,11 @@ SITE = (74.72955, 265.09424)  # the synthetic day's radar (io/synth.py)
 # NVIDIA's H100 SXM data sheet: float32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
+try:
+    import h5py  # noqa: F401
+    HAVE_H5PY = True
+except ImportError:
+    HAVE_H5PY = False
 
 
 def check(cond, msg):
@@ -354,24 +376,33 @@ def phase_kernel(device="cuda", shapes=KERNEL_SHAPES, reps=20):
     return entry
 
 
-def phase_fit(workdir, device="cuda", nwin=64, day=DAY):
-    """The fit half over the first nwin records of the synthetic day;
-    returns the Estimate of the fitted coefficients."""
-    try:
-        import h5py  # noqa: F401
-        have_h5py = True
-    except ImportError:
-        have_h5py = False
-    raw = str(workdir / "day.h5")
-    out = str(workdir / "coef.h5") if have_h5py else ""
-    text = FIT_CFG.format(raw=raw, out=out)
+_DAYS = {}  # the in-memory synthetic days, made once a run
+
+
+def fit_day(workdir, device, method, mode, nwin=None, day=DAY, cli=False):
+    """Fit the synthetic day's first nwin records (all when None) in one
+    setting.  With h5py the day is an AMISR file and the coefficients a
+    file, fitted through cli.main when ``cli``; without, the same classes
+    run on in-memory data.  Returns a dict: the Interpolate (its
+    read_datafile and model serve the checks), C, chi2, reg, est (the
+    result's Estimate), the seconds of the synthetic day, of the fit
+    (calc_coeffs or cli.main) and of fit_records, eigh (matrices the fit
+    decomposed) and guarded (records whose negative chi2 was reported as
+    the whitened chi2)."""
+    raw = workdir / "day.h5"
+    out = workdir / f"coef_{method}_{mode}.h5" if HAVE_H5PY else ""
+    text = FIT_CFG.format(raw=raw, out=out, method=method, mode=mode)
     model = Model(Config.from_text(text))
     t0 = time.perf_counter()
-    if have_h5py:
-        write_synthetic_amisr(raw, smooth_in_model=model, **day)
+    if HAVE_H5PY:
+        if not raw.exists():
+            write_synthetic_amisr(str(raw), smooth_in_model=model, **day)
         interp = Interpolate(text, device=device)
     else:
-        data = synthetic_amisr_datasets(smooth_in_model=model, **day)
+        key = json.dumps(day, sort_keys=True)
+        if key not in _DAYS:
+            _DAYS[key] = synthetic_amisr_datasets(smooth_in_model=model, **day)
+        data = _DAYS[key]
 
         class MemInterpolate(Interpolate):
             def read_datafile(self, filename):
@@ -381,16 +412,95 @@ def phase_fit(workdir, device="cuda", nwin=64, day=DAY):
         interp = MemInterpolate(text, device=device)
     synth_s = time.perf_counter() - t0
 
-    start = EPOCH + dt.timedelta(seconds=day["t0"])
-    end = start + dt.timedelta(seconds=day["cadence"] * nwin)
+    start = end = None
+    if nwin is not None:
+        start = EPOCH + dt.timedelta(seconds=day["t0"])
+        end = start + dt.timedelta(seconds=day["cadence"] * nwin)
+    eigh0, neg0 = solve.eigh_matrices, ops_fit.negative_chi2_reports
     t0 = time.perf_counter()
-    interp.calc_coeffs(start, end)
+    if cli and HAVE_H5PY:
+        cfg = workdir / f"{method}_{mode}.ini"
+        cfg.write_text(text)
+        argv = [str(cfg), "--profile", "--device", device]
+        if start is not None:
+            argv += ["--starttime", start.isoformat(),
+                     "--endtime", end.isoformat()]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli_main(argv)
+        prof = {w[0]: float(w[1]) for w in map(str.split,
+                                               buf.getvalue().splitlines())}
+        res = load_coeff_file(str(out))
+        C, chi2, reg = res["Coeffs"], res["chi2"], res["reg_params"][:, 0]
+    else:
+        interp.calc_coeffs(start, end)
+        prof = interp.timer.report()
+        C, chi2, reg = interp.Coeffs, interp.chi_sq, interp.reg_params[:, 0]
     if device == "cuda":
         torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    fit_rec_s = interp.timer.report()["fit_records"]
+    res = dict(interp=interp, C=C, chi2=chi2, reg=reg, synth_s=synth_s,
+               fit_s=fit_s, fit_rec_s=prof["fit_records"],
+               eigh=solve.eigh_matrices - eigh0,
+               guarded=ops_fit.negative_chi2_reports - neg0)
 
-    chi2, reg, C = interp.chi_sq, interp.reg_params[:, 0], interp.Coeffs
+    if HAVE_H5PY:
+        if not cli:
+            interp.saveh5()
+        res["est"] = Estimate(str(out), device=device)
+        return res
+
+    class MemEstimate(Estimate):
+        def loadh5(self, filename=None):
+            self.Coeffs, self.Covariance = interp.Coeffs, interp.Covariance
+            self.time, self.hull_vert = interp.time, interp.hull_vert
+            self.config_file_text = interp.config.raw_text
+            self.chi2, self.raw_filename = interp.chi_sq, str(raw)
+
+    res["est"] = MemEstimate(None, device=device)
+    return res
+
+
+def wfield(fit, C_ref, nwin):
+    """The W-weighted field residual of the fit's first nwin records
+    against C_ref (docs/PARITY_NOTES.md #7): |sw A (C - C_ref)| / |sw A
+    C_ref| per record, sw = 1/error on the record's valid points; NaN on
+    the records C_ref leaves NaN."""
+    interp = fit["interp"]
+    _, lat, lon, alt, value, error = interp.read_datafile(interp.filename)
+    A = interp.model.basis(lat, lon, alt)
+    ok = np.isfinite(value[:nwin])
+    sw = ok / np.where(ok, error[:nwin], 1.0)
+    C = fit["C"][:nwin]
+    return (np.linalg.norm(sw * ((C - C_ref) @ A.T), axis=1)
+            / np.linalg.norm(sw * (C_ref @ A.T), axis=1))
+
+
+def window_oracle(tag, nwin):
+    o = np.load(ROOT / "tests" / "oracle" / f"day1000_seed1_window64_{tag}.npz")
+    return o["C"][:nwin], o["chi2"][:nwin], o["reg"][:nwin, 0]
+
+
+def held_to_bars(what, vals, median_tol, max_tol):
+    """Checks median and max of vals (NaN entries left out); returns both."""
+    v = vals[np.isfinite(vals)]
+    med, mx = float(np.median(v)), float(v.max())
+    check(med <= median_tol and mx <= max_tol,
+          f"{what}: median {med:.3e} (bar {median_tol}), max {mx:.3e} (bar "
+          f"{max_tol}, record {int(np.nanargmax(vals))})")
+    return med, mx
+
+
+def dlog10(a, b):
+    """|log10 a - log10 b| on the records where both are positive."""
+    ok = (a > 0) & (b > 0)
+    return np.abs(np.log10(a[ok]) - np.log10(b[ok]))
+
+
+def phase_fit(workdir, device="cuda", nwin=64, day=DAY):
+    """Phase 4, exact_grid over the first nwin records."""
+    fit = fit_day(workdir, device, "chi2", "exact_grid", nwin, day)
+    chi2, reg, C = fit["chi2"], fit["reg"], fit["C"]
     check(chi2.shape == (nwin,) and C.shape == (nwin, 144),
           f"fit shapes {chi2.shape} {C.shape}")
     check(np.isfinite(chi2).all() and (reg > 0).all() and np.isfinite(C).all(),
@@ -400,64 +510,133 @@ def phase_fit(workdir, device="cuda", nwin=64, day=DAY):
     check(np.array_equal(np.isnan(chi2), np.isnan(oracle["chi2"][:nwin])),
           "NaN set differs from the oracle")
     rel = np.abs(chi2 - oracle["chi2"][:nwin]) / oracle["chi2"][:nwin]
-    dla = np.abs(np.log10(reg) - np.log10(oracle["reg"][:nwin, 0]))
-    check(np.median(rel) <= CHI2_MEDIAN_TOL and rel.max() <= CHI2_MAX_TOL,
-          f"chi2 vs the exact oracle: median {np.median(rel):.3e}, max "
-          f"{rel.max():.3e} (record {int(rel.argmax())})")
+    dla = dlog10(reg, oracle["reg"][:nwin, 0])
+    held_to_bars("chi2 vs the exact oracle", rel, CHI2_MEDIAN_TOL,
+                 CHI2_MAX_TOL)
     # the data-determined metric against the exact_grid window oracle
-    grid_o = np.load(ROOT / "tests" / "oracle"
-                     / "day1000_seed1_window64_exact_grid.npz")
-    _, lat, lon, alt, value, error = interp.read_datafile(interp.filename)
-    A = interp.model.basis(lat, lon, alt)
-    sw = np.isfinite(value[:nwin]) / np.where(np.isfinite(value[:nwin]),
-                                              error[:nwin], 1.0)
-    C_o = grid_o["C"][:nwin]
-    wf = (np.linalg.norm(sw * ((C - C_o) @ A.T), axis=1)
-          / np.linalg.norm(sw * (C_o @ A.T), axis=1))
-    rel_g = np.abs(chi2 - grid_o["chi2"][:nwin]) / grid_o["chi2"][:nwin]
-    dla_g = np.abs(np.log10(reg) - np.log10(grid_o["reg"][:nwin, 0]))
-    check(np.median(wf) <= WFIELD_MEDIAN_TOL and wf.max() <= WFIELD_MAX_TOL,
-          f"W-weighted field vs the exact_grid oracle: median "
-          f"{np.median(wf):.3e}, max {wf.max():.3e} (record {int(wf.argmax())})")
+    C_o, chi2_o, reg_o = window_oracle("exact_grid", nwin)
+    wf = wfield(fit, C_o, nwin)
+    rel_g = np.abs(chi2 - chi2_o) / chi2_o
+    dla_g = dlog10(reg, reg_o)
+    held_to_bars("W-weighted field vs the exact_grid oracle", wf,
+                 WFIELD_MEDIAN_TOL, WFIELD_MAX_TOL)
     check(rel_g.max() <= CHI2_MAX_TOL, f"chi2 vs the exact_grid oracle: max "
           f"{rel_g.max():.3e} (record {int(rel_g.argmax())})")
-    eigh_s = _eigh_seconds(nwin, device) if device == "cuda" else float("nan")
-    print(f"phase 4 fit: h5py: {'present' if have_h5py else 'absent'}; "
-          f"synthetic day {synth_s:.2f} s; calc_coeffs({nwin} records, "
-          f"exact_grid) {fit_s:.3f} s, of which fit_records {fit_rec_s:.3f} s "
-          f"= {nwin / fit_rec_s:.3f} records/s; eigh at the fit's batch "
-          f"shapes, timed alone: {eigh_s:.3f} s; 0 NaN, 0 negative chi2; "
+    from volumetricinterp_tpu_torch.ops.regparam import EIGH_BATCH, N_BISECT
+
+    n_grid = nwin * 101
+    batches = [EIGH_BATCH] * (n_grid // EIGH_BATCH) + [n_grid % EIGH_BATCH]
+    batches += [nwin] * (N_BISECT + 1)
+    check(sum(batches) == fit["eigh"], f"{fit['eigh']} eighs counted, "
+          f"{sum(batches)} expected")
+    eigh_s = _eigh_seconds(batches, device)
+    fit_rec_s = fit["fit_rec_s"]
+    print(f"phase 4 fit: h5py: {'present' if HAVE_H5PY else 'absent'}; "
+          f"synthetic day {fit['synth_s']:.2f} s; calc_coeffs({nwin} records, "
+          f"exact_grid) {fit['fit_s']:.3f} s, of which fit_records "
+          f"{fit_rec_s:.3f} s = {nwin / fit_rec_s:.3f} records/s; "
+          f"{fit['eigh'] / nwin:.3f} eighs a record, timed alone at the "
+          f"fit's batch shapes: {eigh_s:.3f} s; 0 NaN, 0 negative chi2; "
           f"vs exact oracle: chi2 rel median {np.median(rel):.4e} max "
           f"{rel.max():.4e}, |dlog10 alpha| median {np.median(dla):.4e} max "
           f"{dla.max():.4e}; vs exact_grid oracle: W-weighted field rel "
           f"median {np.median(wf):.4e} max {wf.max():.4e}, chi2 rel median "
           f"{np.median(rel_g):.4e} max {rel_g.max():.4e}, |dlog10 alpha| "
           f"median {np.median(dla_g):.4e} max {dla_g.max():.4e}", flush=True)
-
-    if have_h5py:
-        interp.saveh5()
-        return Estimate(out, device=device)
-
-    class MemEstimate(Estimate):
-        def loadh5(self, filename=None):
-            self.Coeffs, self.Covariance = interp.Coeffs, interp.Covariance
-            self.time, self.hull_vert = interp.time, interp.hull_vert
-            self.config_file_text = interp.config.raw_text
-            self.chi2, self.raw_filename = interp.chi_sq, raw
-
-    return MemEstimate(None, device=device)
+    return fit["est"]
 
 
-def _eigh_seconds(nwin, device):
-    """Seconds the fit's eigendecompositions take at its own batch shapes
-    (101 grid alphas per record in batches of EIGH_BATCH, 40 bisection
-    rounds and the final solve over nwin records), on random SPD matrices."""
-    from volumetricinterp_tpu_torch.ops.regparam import EIGH_BATCH, N_BISECT
+def chunk_sizes(nrec):
+    """Interpolate's record chunks: min(nrec, 128) records each."""
+    chunk = min(nrec, 128)
+    return [min(chunk, nrec - s) for s in range(0, nrec, chunk)]
 
-    n_grid = nwin * 101
-    batches = [EIGH_BATCH] * (n_grid // EIGH_BATCH) + [n_grid % EIGH_BATCH]
-    batches += [nwin] * (N_BISECT + 1)
-    g = torch.randn(EIGH_BATCH, 144, 144, dtype=torch.float64, device=device)
+
+def phase_fit_default(workdir, device="cuda", nwin=64, day=DAY):
+    """Phase 4b, the shipped default (chi2, exact) over the whole day;
+    returns its Estimate for phase 5."""
+    fit = fit_day(workdir, device, "chi2", "exact", None, day, cli=True)
+    nrec = day["nrec"]
+    chi2, reg, C = fit["chi2"], fit["reg"], fit["C"]
+    check(chi2.shape == (nrec,) and C.shape == (nrec, 144),
+          f"fit shapes {chi2.shape} {C.shape}")
+    oracle = np.load(ROOT / "tests" / "oracle" / "day1000_seed1_oracle.npz")
+    nan = np.isnan(chi2)
+    check(np.array_equal(nan, np.isnan(oracle["chi2"][:nrec])),
+          "NaN set differs from the oracle")
+    check(np.isfinite(C[~nan]).all(), "non-finite coefficients")
+    check((chi2[~nan] >= 0).all(),
+          f"{int((chi2[~nan] < 0).sum())} negative chi2")
+    rel = np.abs(chi2 - oracle["chi2"][:nrec]) / oracle["chi2"][:nrec]
+    rel_med, rel_max = held_to_bars("chi2 vs the exact oracle", rel,
+                                    CHI2_MEDIAN_TOL, CHI2_MAX_TOL)
+    dla = dlog10(reg, oracle["reg"][:nrec, 0])
+    C_o, chi2_o, reg_o = window_oracle("exact", nwin)
+    wf_med, wf_max = held_to_bars(
+        "W-weighted field vs the exact window oracle",
+        wfield(fit, C_o, nwin), WFIELD_MEDIAN_TOL, WFIELD_MAX_TOL)
+    dla_w = dlog10(reg[:nwin], reg_o)
+    # AtWA's, the whitened pencil's and two anchors' a record, R's once
+    batches = [b for b in chunk_sizes(nrec) for _ in range(4)] + [1]
+    check(sum(batches) == fit["eigh"], f"{fit['eigh']} eighs counted, "
+          f"{sum(batches)} expected")
+    eigh_s = _eigh_seconds(batches, device)
+    print(f"phase 4b fit, exact (the shipped default): "
+          f"{'cli.main' if HAVE_H5PY else 'Interpolate.calc_coeffs (h5py absent)'}"
+          f" on the whole {nrec}-record day: {fit['fit_s']:.3f} s, of which "
+          f"fit_records {fit['fit_rec_s']:.3f} s = "
+          f"{nrec / fit['fit_rec_s']:.3f} records/s; {fit['eigh'] / nrec:.3f} "
+          f"eighs a record, timed alone at the fit's batch shapes: "
+          f"{eigh_s:.3f} s; {int(nan.sum())} NaN as the oracle, 0 negative "
+          f"chi2 ({fit['guarded']} records reported the whitened chi2 at "
+          f"the root for a negative one); vs exact oracle: chi2 rel median {rel_med:.4e} max "
+          f"{rel_max:.4e}, |dlog10 alpha| median {np.median(dla):.4e} max "
+          f"{dla.max():.4e}; first {nwin} vs exact window oracle: W-weighted "
+          f"field rel median {wf_med:.4e} max {wf_max:.4e}, |dlog10 alpha| "
+          f"median {np.median(dla_w):.4e} max {dla_w.max():.4e}", flush=True)
+    return fit["est"]
+
+
+def phase_fit_windows(workdir, device="cuda", nwin=64, day=DAY):
+    """Phase 4c, the nwin-record window in fast mode and in gcv mode, each
+    against its own window oracle."""
+    for tag, method, mode, per_rec in (("fast", "chi2", "fast", 3),
+                                       ("gcv", "gcv", "exact", 2)):
+        fit = fit_day(workdir, device, method, mode, nwin, day)
+        chi2, reg = fit["chi2"], fit["reg"]
+        C_o, chi2_o, reg_o = window_oracle(tag, nwin)
+        nan = np.isnan(chi2)
+        check(np.array_equal(nan, np.isnan(chi2_o)),
+              f"{tag}: NaN set differs from its window oracle")
+        wf_med, wf_max = held_to_bars(
+            f"{tag}: W-weighted field vs its window oracle",
+            wfield(fit, C_o, nwin), WFIELD_MEDIAN_TOL, WFIELD_MAX_TOL)
+        rel = (np.abs(chi2 - chi2_o) / chi2_o)[~nan]
+        dla = dlog10(reg, reg_o)
+        # fast: AtWA's, the whitened pencil's and the final solve's a
+        # record; gcv: AtWA's and the final solve's, R's once
+        want = per_rec * nwin + (method == "gcv")
+        check(fit["eigh"] == want, f"{tag}: {fit['eigh']} eighs counted, "
+              f"{want} expected")
+        print(f"phase 4c fit, {tag} (REGULARIZATION_METHOD = {method}, "
+              f"REGPARAM_MODE = {mode}), {nwin} records: fit_records "
+              f"{fit['fit_rec_s']:.3f} s = {nwin / fit['fit_rec_s']:.3f} "
+              f"records/s, {fit['eigh'] / nwin:.3f} eighs a record; "
+              f"{int(nan.sum())} NaN as its oracle, "
+              f"{int((chi2[~nan] < 0).sum())} negative chi2; vs its window "
+              f"oracle: W-weighted field rel median {wf_med:.4e} max "
+              f"{wf_max:.4e}, chi2 rel median {np.median(rel):.4e} max "
+              f"{rel.max():.4e}, |dlog10 alpha| median {np.median(dla):.4e} "
+              f"max {dla.max():.4e} (printed, not held)", flush=True)
+
+
+def _eigh_seconds(batches, device):
+    """Seconds torch.linalg.eigh takes over these batch sizes of random
+    144x144 float64 SPD matrices, timed alone (nan off the card)."""
+    if device != "cuda":
+        return float("nan")
+    g = torch.randn(max(batches), 144, 144, dtype=torch.float64,
+                    device=device)
     X = g @ g.transpose(-1, -2)
     torch.linalg.eigh(X[:8])
     torch.cuda.synchronize()
@@ -537,7 +716,9 @@ def main():
     # the main path: launch counts from here on
     grid_eval_cuda.launches = 0
     with tempfile.TemporaryDirectory(prefix=".smoke-", dir=ROOT) as tmp:
-        est = phase_fit(Path(tmp))
+        phase_fit(Path(tmp))
+        est = phase_fit_default(Path(tmp))
+        phase_fit_windows(Path(tmp))
         phase_product(est)
     kernel["launches"] = grid_eval_cuda.launches
     check(kernel["launches"] > 0, "the main path never launched the kernel")

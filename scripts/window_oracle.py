@@ -1,24 +1,40 @@
 #!/usr/bin/env python
-"""Build tests/oracle/day1000_seed1_window64_exact_grid.npz.
+"""Build tests/oracle/day1000_seed1_window64_<tag>.npz.
 
-The JAX package's CPU float64 fit, REGPARAM_MODE = exact_grid, of the first
-64 records of the seed-1 synthetic day (nrec=1000, nan_frac=0.03,
-bad_frac=0.01, basis-projected truth at MAXK=4/MAXL=6, QUAD_MODE = gauss:
-scripts/day_check.py's day).  Stores C [64, 144], chi2 [64] and reg
-[64, 1].  chip_smoke.py holds the PyTorch port's fit of the same window
-against it in the W-weighted field residual (docs/PARITY_NOTES.md #7);
+The JAX package's CPU float64 fit of the first 64 records of the seed-1
+synthetic day (nrec=1000, nan_frac=0.03, bad_frac=0.01, basis-projected
+truth at MAXK=4/MAXL=6, QUAD_MODE = gauss, REGULARIZATION_LIST = 0thorder:
+scripts/day_check.py's day), in one of four settings:
+
+    tag          REGULARIZATION_METHOD  REGPARAM_MODE
+    exact_grid   chi2                   exact_grid
+    exact        chi2                   exact
+    fast         chi2                   fast
+    gcv          gcv                    exact
+
+Stores C [64, 144], chi2 [64] and reg [64, 1].  chip_smoke.py holds the
+PyTorch port's fit of the same window in the same setting against it in
+the W-weighted field residual (docs/PARITY_NOTES.md #7);
 tests/oracle/day1000_seed1_oracle.npz has no coefficients.
 
-Usage:  JAX_PLATFORMS=cpu python scripts/window_oracle.py
+Wall time of one run on an 8-core x86 CPU host (JAX 0.9.0, float64, cold
+compile included): exact_grid not recorded; exact 65 s; fast 21 s; gcv
+62 s.
+
+Usage:  JAX_PLATFORMS=cpu python scripts/window_oracle.py [tag]
+        (default tag: exact_grid)
 """
 import os
 import sys
 import tempfile
+import time
 
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NWIN = 64
+SETTINGS = {"exact_grid": ("chi2", "exact_grid"), "exact": ("chi2", "exact"),
+            "fast": ("chi2", "fast"), "gcv": ("gcv", "exact")}
 CFG = """
 [DEFAULT]
 REGULARIZATION_LIST = 0thorder
@@ -36,7 +52,8 @@ QUAD_MODE = gauss
 """
 
 
-def main():
+def main(tag="exact_grid"):
+    method, mode = SETTINGS[tag]
     sys.path.insert(0, ROOT)
     import jax
 
@@ -57,14 +74,16 @@ def main():
             raw, "dens", [1e10, 1e13], [0.1, 10.0], [1, 2, 3, 4])
     A = np.asarray(model.basis(lat, lon, alt))
     R = np.asarray(model.eval_psi())[None]
+    t0 = time.perf_counter()
     C, _, chi2, reg = fit_records(value[:NWIN], error[:NWIN], A, R,
-                                  regparam_mode="exact_grid")
+                                  method=method, regparam_mode=mode)
+    C = np.asarray(C)
+    seconds = time.perf_counter() - t0
     out = os.path.join(ROOT, "tests", "oracle",
-                       "day1000_seed1_window64_exact_grid.npz")
-    np.savez(out, C=np.asarray(C), chi2=np.asarray(chi2),
-             reg=np.asarray(reg))
-    print(out)
+                       f"day1000_seed1_window64_{tag}.npz")
+    np.savez(out, C=C, chi2=np.asarray(chi2), reg=np.asarray(reg))
+    print(f"{out}: fit_records {seconds:.1f} s")
 
 
 if __name__ == "__main__":
-    main()
+    main(*sys.argv[1:])

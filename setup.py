@@ -33,7 +33,8 @@ setup(
     ],
     packages=find_packages(exclude=["tests", "tests.*"]),
     package_data={"volumetricinterp_tpu": ["example_config.ini"],
-                  "volumetricinterp_tpu_torch": ["csrc/*.cu"]},
+                  "volumetricinterp_tpu_torch": ["csrc/*.cu",
+                                                 "example_config.ini"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "scipy", "h5py"],
     extras_require={"plots": ["matplotlib", "cartopy"],
@@ -44,6 +45,7 @@ setup(
         "console_scripts": [
             "volumetricinterp=volumetricinterp_tpu.cli:main",
             "volumetricinterp-validate=volumetricinterp_tpu.cli:validate_main",
+            "volumetricinterp-torch=volumetricinterp_tpu_torch.cli:main",
         ],
     },
 )

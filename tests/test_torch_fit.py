@@ -1,5 +1,7 @@
 """PyTorch port, fit core: fit_records in exact_grid mode (and manual)
-against the JAX package's fit_records on the same records, CPU float64."""
+against the JAX package's fit_records on the same records, CPU float64.
+The other modes are held in test_torch_fit_chi2.py and
+test_torch_fit_gcv.py with the helpers of this file."""
 
 import numpy as np
 import pytest
@@ -11,6 +13,7 @@ from volumetricinterp_tpu.models.sphharmlag import Model as JModel
 from volumetricinterp_tpu.ops import fit as jfit
 from volumetricinterp_tpu.ops import solve as jsolve
 
+from volumetricinterp_tpu_torch import Interpolate
 from volumetricinterp_tpu_torch.convert import coeffs_from_jax
 from volumetricinterp_tpu_torch.ops import solve as tsolve
 from volumetricinterp_tpu_torch.ops.fit import fit_records
@@ -92,15 +95,18 @@ def _wall_records(values, errors, A, R, alphas):
     return wall
 
 
-def _check_fit(got, ref, values, errors, A, R, wall):
+def _check_fit(got, ref, values, errors, A, R, wall, loose=(),
+               bars=(1e-3, 1e-3, 5e-3)):
     """C, dC, chi2 within 1e-6 of each record's sup, except on the named
-    cutoff-wall records, which are held to the PARITY_NOTES #7 data-
-    determined bars: chi2 and the W-weighted field within 1e-3 relative,
-    the predicted field variance diag(A dC A') within 5e-3."""
+    cutoff-wall records (and the ``loose`` records a caller names with its
+    reason), which are held to the PARITY_NOTES #7 data-determined bars
+    ``bars``: chi2 and the W-weighted field within 1e-3 relative, the
+    predicted field variance diag(A dC A') within 5e-3."""
+    bar_c2, bar_wf, bar_fv = bars
     (C, dC, c2, rp), (Cj, dCj, c2j, rpj) = got, ref
     assert _wall_records(values, errors, A, R, rpj) == wall
     for r in range(values.shape[0]):
-        if r not in wall:
+        if r not in wall and r not in loose:
             _sup_close(C[r], Cj[r], 1e-6)
             _sup_close(dC[r], dCj[r], 1e-6)
             _sup_close(c2[r], c2j[r], 1e-6)
@@ -111,9 +117,9 @@ def _check_fit(got, ref, values, errors, A, R, wall):
               / np.linalg.norm(sw * (A @ Cj[r])))
         fv = np.einsum("pi,ij,pj->p", A, dC[r], A)
         fvj = np.einsum("pi,ij,pj->p", A, dCj[r], A)
-        assert abs(c2[r] - c2j[r]) <= 1e-3 * c2j[r], r
-        assert wf <= 1e-3, r
-        assert np.max(np.abs(fv - fvj) / np.abs(fvj)) <= 5e-3, r
+        assert abs(c2[r] - c2j[r]) <= bar_c2 * c2j[r], r
+        assert wf <= bar_wf, r
+        assert np.max(np.abs(fv - fvj) / np.abs(fvj)) <= bar_fv, r
 
 
 # the named cutoff-wall records: MAXL=3 carries the near-null sin-column
@@ -151,11 +157,18 @@ def test_manual_matches_jax(records):
 
 
 def test_unported_modes_raise(records):
-    _, (values, errors, A, R) = records
-    with pytest.raises(NotImplementedError):
-        fit_records(values, errors, A, R, regparam_mode="exact", device="cpu")
-    with pytest.raises(NotImplementedError):
-        fit_records(values, errors, A, R, method="gcv", device="cpu")
+    """Data-informed regularization (profile taus) is still unported: a
+    configuration that asks for it raises before any data is read.  An
+    unknown method or mode is an error."""
+    maxl, (values, errors, A, R) = records
+    cfg = CFG.replace("MAXL = 3", f"MAXL = {maxl}").replace(
+        "[MODEL]", "REGULARIZATION_PROFILE = chapman,1e11,300,50\n[MODEL]")
+    with pytest.raises(NotImplementedError, match="profile taus"):
+        Interpolate(cfg, device="cpu").calc_coeffs()
+    with pytest.raises(ValueError):
+        fit_records(values, errors, A, R, regparam_mode="exakt", device="cpu")
+    with pytest.raises(ValueError):
+        fit_records(values, errors, A, R, method="loo", device="cpu")
 
 
 def test_solve_surface_matches_jax():

@@ -19,6 +19,7 @@ for name in {blocked!r}:
 import numpy as np
 import torch
 import volumetricinterp_tpu_torch as vt
+import volumetricinterp_tpu_torch.cli
 from volumetricinterp_tpu_torch.config import Config
 from volumetricinterp_tpu_torch.io.amisr import qc_datasets
 from volumetricinterp_tpu_torch.io.synth import synthetic_amisr_datasets

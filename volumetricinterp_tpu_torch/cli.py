@@ -1,0 +1,86 @@
+"""Console entry point of the PyTorch port (the fit route of
+volumetricinterp_tpu/cli.py, reference run_volumetricinterp.py:14-35).
+
+    volumetricinterp-torch config.ini [--device cpu]
+
+--starttime/--endtime window the fit, --resume continues a partially
+written output file, --profile prints the phase times, --device picks the
+device (cuda by default; the CPU runs only when asked for).
+"""
+
+from __future__ import annotations
+
+import datetime as dt
+from argparse import ArgumentParser, RawTextHelpFormatter
+
+description = (
+    "Calculate coefficients for volmetric interpolation of a scalar "
+    "quantity in a fitted AMISR file."
+)
+
+
+def _config_help():
+    """The help text: the keys of the packaged example configuration."""
+    import importlib.resources as res
+
+    text = (res.files("volumetricinterp_tpu_torch")
+            .joinpath("example_config.ini").read_text())
+    body = "".join(
+        line for line in text.splitlines(keepends=True)
+        if not line.startswith("#") and len(line.strip()) > 0
+    )
+    return "A configuration file that specifies the following parameters:\n" + body
+
+
+def main(argv=None):
+    parser = ArgumentParser(description=description,
+                            formatter_class=RawTextHelpFormatter)
+    parser.add_argument("config_file", help=_config_help())
+    parser.add_argument("--validate", action="store_true",
+                        help="not ported to the PyTorch package yet")
+    parser.add_argument("--starttime", default=None,
+                        help="ISO start time (overrides full-file fit)")
+    parser.add_argument("--endtime", default=None, help="ISO end time")
+    parser.add_argument("--resume", action="store_true",
+                        help="checkpointed mode: flush each record chunk to "
+                             "the output file and resume a partial run")
+    parser.add_argument("--profile", action="store_true",
+                        help="print per-phase wall times at the end")
+    parser.add_argument("--distributed", action="store_true",
+                        help="not ported to the PyTorch package yet")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device of the fit (default cuda; pass "
+                             "cpu to run on the CPU)")
+    args = vars(parser.parse_args(argv))
+
+    if args["distributed"]:
+        raise NotImplementedError(
+            "--distributed is not ported to the PyTorch package yet "
+            "(ROADMAP queue 1: parallel)")
+    if args["validate"]:
+        raise NotImplementedError(
+            "--validate is not ported to the PyTorch package yet "
+            "(ROADMAP queue 1: validate and CLI)")
+
+    from .interpolate import Interpolate
+
+    interp = Interpolate(args["config_file"], device=args["device"])
+    st = (dt.datetime.fromisoformat(args["starttime"])
+          if args["starttime"] else None)
+    et = dt.datetime.fromisoformat(args["endtime"]) if args["endtime"] else None
+    interp.calc_coeffs(starttime=st, endtime=et, resume=args["resume"])
+    interp.saveh5()
+    if args["profile"]:
+        for k, v in interp.timer.report().items():
+            print(f"{k:24s} {v:8.3f} s")
+
+
+def validate_main(argv=None):
+    """Standalone validation entry (reference run_validate.py:16-28)."""
+    raise NotImplementedError(
+        "validation is not ported to the PyTorch package yet "
+        "(ROADMAP queue 1: validate and CLI)")
+
+
+if __name__ == "__main__":
+    main()

@@ -3,7 +3,7 @@ reference class of the same name, interpolate.py:16-708, and the JAX
 package's Interpolate).
 
 The day runs as a plain loop over record chunks: each chunk is fitted in
-float64 on ``device`` (ops/fit.py: masked sufficient statistics, the chi2
+float64 on ``device`` (ops/fit.py: masked sufficient statistics, the
 regularization search, the cutoff solve), copied to the host and, when an
 output file is configured, flushed to it (io.coeffs.IncrementalCoeffWriter)
 so an interrupted run leaves a valid checkpoint; ``saveh5`` then finalizes
@@ -27,7 +27,7 @@ from . import models
 from .io.amisr import read_datafile
 from .io.coeffs import (IncrementalCoeffWriter, finalize_checkpoint,
                         save_coeff_file)
-from .ops.fit import fit_records
+from .ops.fit import fit_records, reg_mats_eig
 from .ops import regparam as regparam_mod
 from .utils.device import check_device
 from .utils.hull import compute_hull_vertices
@@ -226,13 +226,16 @@ class Interpolate:
             A_d = torch.as_tensor(A_np, dtype=torch.float64, device=self.device)
             R_d = torch.as_tensor(reg_mats, dtype=torch.float64,
                                   device=self.device)
+            mode = self.config.tpu.regparam_mode
+            # R's eigenbases (the exact searches' alpha = 1 side) once a run
+            reg_eig = (reg_mats_eig(R_d) if len(names) and mode == "exact"
+                       and method in ("chi2", "gcv") else None)
             for s in range(start0, nrec, chunk):
                 e = min(s + chunk, nrec)
                 res = fit_records(
                     value[s:e], error[s:e], A_d, R_d, method=method,
-                    manual_params=manual_params,
-                    regparam_mode=self.config.tpu.regparam_mode,
-                    device=self.device)
+                    manual_params=manual_params, regparam_mode=mode,
+                    device=self.device, reg_eig=reg_eig)
                 C_all[s:e], dC_all[s:e], c2_all[s:e], rp_all[s:e] = (
                     t.cpu().numpy() for t in res)
                 if writer is not None:

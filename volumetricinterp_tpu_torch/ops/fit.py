@@ -1,8 +1,20 @@
 """Batched fit: records in, (C, dC, chi2, alphas) out, in float64 torch.
 
-    per record batch:  QC mask -> sufficient statistics -> chi2 = nu
-                       regularization search (or manual alphas) ->
-                       cutoff solve -> covariance, chi^2
+    per record batch:  QC mask -> sufficient statistics ->
+                       regularization search (chi2 = nu or GCV, or manual
+                       alphas) -> cutoff solve -> covariance, chi^2
+
+The dispatch of the JAX package's fit_from_stats_x / fit_one_record_x
+(volumetricinterp_tpu/ops/fit.py:50-233), on a record batch:
+
+* chi2 'exact' (the default): AtWA's eigendecomposition is shared by every
+  regularization matrix's search; with one matrix the search's last anchor
+  feeds the final solve (solve.final_solve_anchor) and a negative chi^2 is
+  reported as the whitened chi^2 at the root; with several, each search
+  runs alone (the others at zero, interpolate.py:120-124) and one cutoff
+  solve follows.
+* chi2 'exact_grid' and 'fast', gcv (both modes), manual: a search per
+  matrix, then the cutoff solve.
 
 Records whose parameter search fails are NaN-filled (interpolate.py:
 557-563).  The design matrix A is shared across records (the beam geometry
@@ -15,31 +27,45 @@ import numpy as np
 import torch
 
 from . import regparam
-from .solve import final_solve, suff_stats
+from .solve import (final_solve, final_solve_anchor, masked_points,
+                    normalized_eigh, suff_stats)
+
+METHODS = ("chi2", "gcv", "manual")
+REGPARAM_MODES = ("exact", "exact_grid", "fast")
+# records whose negative chi^2 was reported as the whitened chi^2, since
+# import (chip_smoke.py reads it); one host read a record batch, after the
+# search
+negative_chi2_reports = 0
+
+
+def reg_mats_eig(reg_mats):
+    """(V [nreg, nb, nb], s [nreg]): the normalized eigenbases of the
+    regularization matrices, which the 'exact' chi2 search and the 'exact'
+    GCV search take from R.  They depend on the model only, so a run
+    computes them once (ops/fit.py:382-413)."""
+    _, V, s = normalized_eigh(reg_mats)
+    return V, s
 
 
 def fit_records(values, errors, A, reg_mats, method: str = "chi2",
-                manual_params=None, regparam_mode: str = "exact_grid",
-                device="cuda"):
+                manual_params=None, regparam_mode: str = "exact",
+                device="cuda", reg_eig=None):
     """Batched fit of a record block.
 
     values/errors: [nrec, npoints] (NaN value = no data); A: [npoints,
     nbasis]; reg_mats: [nreg, nbasis, nbasis]; manual_params: raw alphas
     [nreg] (reference convention) for method 'manual'.  Arrays or tensors;
-    everything is moved to ``device`` in float64.
+    everything is moved to ``device`` in float64.  reg_eig: ``reg_mats_eig``
+    of reg_mats, computed here when not given.
 
     Returns tensors on ``device``: C [nrec, nb], dC [nrec, nb, nb],
     chi2 [nrec], reg_params [nrec, nreg] in the reference's RAW alpha
     units (0 for too-smooth, NaN for a failed search)."""
-    if method == "chi2" and regparam_mode != "exact_grid":
-        raise NotImplementedError(
-            f"REGPARAM_MODE = {regparam_mode!r} is not ported to the PyTorch "
-            "package yet; use exact_grid (ROADMAP queue 1: exact and fast "
-            "chi2 modes)")
-    if method not in ("chi2", "manual"):
-        raise NotImplementedError(
-            f"regularization method {method!r} is not ported to the PyTorch "
-            "package yet (ROADMAP queue 1: GCV)")
+    global negative_chi2_reports
+    if method not in METHODS:
+        raise ValueError(f"unknown regularization method {method!r}")
+    if regparam_mode not in REGPARAM_MODES:
+        raise ValueError(f"unknown REGPARAM_MODE {regparam_mode!r}")
     device = torch.device(device)
     values, errors, A, reg_mats = (
         torch.as_tensor(x, dtype=torch.float64, device=device)
@@ -47,23 +73,62 @@ def fit_records(values, errors, A, reg_mats, method: str = "chi2",
     nrec, nreg = values.shape[0], reg_mats.shape[0]
 
     AtWA, AtWb, btWb, N = suff_stats(A, values, errors)
+    anchored = None
     if nreg == 0:
         log_alphas = torch.zeros((nrec, 0), dtype=torch.float64, device=device)
     elif method == "manual":
         with np.errstate(divide="ignore"):
             la = np.log10(np.asarray(manual_params, np.float64))
         log_alphas = torch.as_tensor(la, device=device).expand(nrec, nreg)
-    else:
-        # reference semantics: each parameter solved with all others at
-        # zero (interpolate.py:120-124, 246-252)
+    elif regparam_mode == "exact_grid" and method == "chi2":
         log_alphas = torch.stack(
             [regparam.chi2_reg_param_grid(AtWA, AtWb, btWb, N, reg_mats[i])
              for i in range(nreg)], dim=-1)
+    elif regparam_mode == "fast":
+        # AtWA's raw-scale eigendecomposition, shared by every whitening
+        w, V, s = normalized_eigh(AtWA)
+        eig_raw = (w * s[:, None], V)
+        if method == "chi2":
+            searches = [regparam.chi2_reg_param_fast(AtWb, btWb, N, R, eig_raw)
+                        for R in reg_mats]
+        else:
+            b, W, mask = masked_points(values, errors)
+            searches = [regparam.gcv_reg_param_fast(
+                AtWb, R, A, b, W, mask, eig_raw) for R in reg_mats]
+        log_alphas = torch.stack(searches, dim=-1)
+    else:
+        eigA = normalized_eigh(AtWA)
+        VR, sR = reg_mats_eig(reg_mats) if reg_eig is None else reg_eig
+        if method == "gcv":
+            b, W, mask = masked_points(values, errors)
+            searches = [regparam.gcv_reg_param_x(
+                AtWA, AtWb, reg_mats[i], A, b, W, mask, eigA, (VR[i], sR[i]))
+                for i in range(nreg)]
+        elif nreg == 1:
+            root, anchor, chi2_fb = regparam.chi2_reg_param(
+                AtWA, AtWb, btWb, N, reg_mats[0], eigA, (VR[0], sR[0]),
+                want_anchor=True)
+            searches = [root]
+            anchored = (anchor, chi2_fb)
+        else:
+            searches = [regparam.chi2_reg_param(
+                AtWA, AtWb, btWb, N, reg_mats[i], eigA, (VR[i], sR[i]))
+                for i in range(nreg)]
+        log_alphas = torch.stack(searches, dim=-1)
 
-    C, dC, chi2 = final_solve(AtWA, AtWb, btWb, reg_mats, log_alphas)
+    bad = torch.isnan(log_alphas).any(-1)
+    if anchored is not None:
+        anchor, chi2_fb = anchored
+        C, dC, chi2 = final_solve_anchor(anchor, log_alphas[:, 0], AtWA, btWb)
+        # a weighted sum of squares is never negative: a negative one is
+        # reported as the whitened chi^2 at the root (ops/fit.py:146-153)
+        neg = chi2 < 0.0
+        negative_chi2_reports += int((neg & ~bad).sum())
+        chi2 = torch.where(neg, chi2_fb, chi2)
+    else:
+        C, dC, chi2 = final_solve(AtWA, AtWb, btWb, reg_mats, log_alphas)
 
     # NaN-fill failed records (interpolate.py:557-563)
-    bad = torch.isnan(log_alphas).any(-1)
     C = torch.where(bad[:, None], float("nan"), C)
     dC = torch.where(bad[:, None, None], float("nan"), dC)
     chi2 = torch.where(bad, float("nan"), chi2)

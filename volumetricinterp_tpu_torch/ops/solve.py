@@ -13,9 +13,17 @@ leading record axis:
   N * eps * max|w| (docs/PARITY_NOTES.md #8).
 * chi^2 uses the cancellation-free identity chi2 = btWb - u'z/s - C'(aR)C
   (u = V'AtWb, z the kept-mode solve, s the normalization scale).
+* M-shift ANCHORS (``make_anchor`` / ``anchor_chi2`` /
+  ``final_solve_anchor``): one eigendecomposition of X(alpha*) gives the
+  exact projection at any other alpha, M(alpha) = M* + ((alpha - alpha*)/s)
+  V'RV, solved on its kept block (no eigh per evaluation).
+* The whitened pencil (``whiten_pencil``) turns chi^2(alpha) into an
+  O(nbasis) closed form (jitter instead of the cutoff).
 
 Regularization parameters travel as LOG10(alpha): raw alphas reach 1e-100;
 -inf encodes alpha = 0 (the too-smooth outcome) and NaN a failed search.
+Dense solves and inverses use the ``_ex`` forms: a singular kept block gives
+inf/NaN, as in the JAX package, and never raises.
 """
 
 from __future__ import annotations
@@ -23,17 +31,35 @@ from __future__ import annotations
 import torch
 
 EPS64 = 2.220446049250313e-16  # the reference's f64 cutoff unit
+TINY64 = 2.2250738585072014e-308  # finfo(float64).tiny
 _LOG2_10 = 3.321928094887362
+# matrices decomposed by ``eigh`` since import (chip_smoke.py reads it)
+eigh_matrices = 0
 
 
-def alpha_of_log(a_log):
-    """10**a_log as the JAX package forms it (solve.pow10_split): the
-    mantissa 2^(t - floor t), t = a log2(10), rounded to float32, times the
-    exact power of two.  -inf gives 0, NaN stays NaN."""
+def eigh(X):
+    """torch.linalg.eigh of a (batch of) symmetric matrices, counted."""
+    global eigh_matrices
+    eigh_matrices += X[..., 0, 0].numel()
+    return torch.linalg.eigh(X)
+
+
+def pow10_split(a_log):
+    """10**a_log as (mantissa, exponent), the JAX package's pow10_split
+    (solve.py:57-67): m = 2^(t - floor t), t = a log2(10), rounded to
+    float32 (returned as float64), and the exact power k = floor t (float64).
+    -inf clamps to an exponent that flushes m * 2^k to 0; NaN stays NaN."""
     a = torch.clamp(a_log, min=-4000.0)
     t = a * _LOG2_10
     k = torch.floor(t)
     m = torch.exp2(t - k).to(torch.float32).to(a_log.dtype)
+    return m, k
+
+
+def alpha_of_log(a_log):
+    """10**a_log as the JAX package forms it: m * 2^k of ``pow10_split``.
+    -inf gives 0, NaN stays NaN."""
+    m, k = pow10_split(a_log)
     return m * torch.exp2(k)
 
 
@@ -43,10 +69,7 @@ def suff_stats(A, values, errors):
     A: [npoints, nbasis]; values, errors: [nrec, npoints] (NaN value = no
     data).  Returns (AtWA [nrec, nb, nb], AtWb [nrec, nb], btWb [nrec],
     N [nrec])."""
-    mask = torch.isfinite(values)
-    W = torch.where(mask, errors, torch.ones_like(errors)) ** -2.0
-    W = torch.where(mask, W, torch.zeros_like(W))
-    b = torch.where(mask, values, torch.zeros_like(values))
+    b, W, mask = masked_points(values, errors)
     Wb = W * b
     AtWA = A.T @ (A[None] * W[:, :, None])
     AtWb = Wb @ A
@@ -54,19 +77,40 @@ def suff_stats(A, values, errors):
     return AtWA, AtWb, btWb, mask.sum(-1).to(A.dtype)
 
 
-def normalized_eigh(X):
-    """(w, V, s): eigenpairs of X / s, s = |trace X| / n (1 where zero)."""
+def masked_points(values, errors):
+    """Per-point (b, W, mask) of a record batch: NaN values get zero
+    weight and value (interpolate.py:516-524)."""
+    mask = torch.isfinite(values)
+    W = torch.where(mask, errors, torch.ones_like(errors)) ** -2.0
+    W = torch.where(mask, W, torch.zeros_like(W))
+    b = torch.where(mask, values, torch.zeros_like(values))
+    return b, W, mask
+
+
+def norm_scale(X):
+    """|trace X| / n, 1 where zero: the float64 normalization scale
+    (_norm_scale_x, solve.py:655-664)."""
     n = X.shape[-1]
     t = torch.diagonal(X, dim1=-2, dim2=-1).sum(-1) / n
-    s = torch.where(t.abs() > 0, t.abs(), torch.ones_like(t))
-    w, V = torch.linalg.eigh(X / s[..., None, None])
+    return torch.where(t.abs() > 0, t.abs(), torch.ones_like(t))
+
+
+def normalized_eigh(X):
+    """(w, V, s): eigenpairs of X / s, s = norm_scale(X)."""
+    s = norm_scale(X)
+    w, V = eigh(X / s[..., None, None])
     return w, V, s
+
+
+def _keep_mask(w, rcond=EPS64):
+    """The kept modes |w| > rcond * max|w|."""
+    aw = w.abs()
+    return aw > rcond * aw.amax(-1, keepdim=True)
 
 
 def _kept_solve(w, u, rcond):
     """z = u / w on the kept modes |w| > rcond * max|w|, 0 elsewhere."""
-    aw = w.abs()
-    keep = aw > rcond * aw.amax(-1, keepdim=True)
+    keep = _keep_mask(w, rcond)
     return torch.where(keep, u / torch.where(keep, w, torch.ones_like(w)),
                        torch.zeros_like(w))
 
@@ -77,11 +121,7 @@ def cutoff_chi2_x(AtWA, AtWb, btWb, aR):
     already formed.  The float64 branch of the JAX package's
     cutoff_chi2_x / chi2_from_eig_x (the cancellation-free identity)."""
     w, V, s = normalized_eigh(AtWA + aR)
-    u = (V.transpose(-1, -2) @ AtWb[..., None])[..., 0]
-    z = _kept_solve(w, u, EPS64)
-    chi2 = btWb - (u * z).sum(-1) * (1.0 / s)
-    C = (V @ z[..., None])[..., 0] / s[..., None]
-    return chi2 - (C * (aR @ C[..., None])[..., 0]).sum(-1)
+    return chi2_from_eig_x(w, V, None, AtWb, btWb, s, aR=aR)
 
 
 def sym_pinv_apply(X, y, rcond_factor=None, want_H=True, rcond_factor_H=None):
@@ -136,7 +176,12 @@ def final_solve(AtWA, AtWb, btWb, reg_mats, log_alphas):
         a = alpha_of_log(log_alphas[:, i])
         a = torch.where(torch.isnan(a), torch.zeros_like(a), a)
         aR = aR + a[:, None, None] * reg_mats[i]
-    w, V, s = normalized_eigh(AtWA + aR)
+    X = AtWA + aR
+    # a root at alpha = inf (a search that ran off the line) cannot be
+    # decomposed: solve the identity there; the outputs come out NaN
+    bad = ~torch.isfinite(X).all(-1).all(-1)
+    eye = torch.eye(n, dtype=X.dtype, device=X.device)
+    w, V, s = normalized_eigh(torch.where(bad[:, None, None], eye, X))
     Vt = V.transpose(-1, -2)
     u = (Vt @ AtWb[..., None])[..., 0]
     z = _kept_solve(w, u, EPS64)
@@ -148,4 +193,204 @@ def final_solve(AtWA, AtWb, btWb, reg_mats, log_alphas):
     dC = V @ Hmid @ Vt / (s * s)[..., None, None]
     chi2 = btWb - (u * z).sum(-1) * (1.0 / s)
     chi2 = chi2 - (C * (aR @ C[..., None])[..., 0]).sum(-1)
-    return C, dC, chi2
+    nan = float("nan")
+    return (torch.where(bad[:, None], nan, C),
+            torch.where(bad[:, None, None], nan, dC),
+            torch.where(bad, nan, chi2))
+
+
+# ---------------------------------------------------------------------------
+# kept-block solves and chi^2 from a (near-)eigenbasis
+# ---------------------------------------------------------------------------
+
+def _mv(M, x):
+    """Batched matrix-vector product M @ x."""
+    return (M @ x[..., None])[..., 0]
+
+
+def _dot(a, b):
+    return (a * b).sum(-1)
+
+
+def project(X, V):
+    """M = V'XV, symmetrized (the float64 branch of _project_x,
+    solve.py:263-270).  X may be shared ([n, n]) or batched."""
+    M = V.transpose(-1, -2) @ (X @ V)
+    return 0.5 * (M + M.transpose(-1, -2))
+
+
+def keep_solve(u, M, keep):
+    """z solving M|keep z = u|keep on the kept modes, 0 elsewhere: the
+    identity-padded kept block and one dense solve (the float64 branch of
+    _keep_solve_x, solve.py:766-778).  Exact for any basis of the kept
+    subspace, so anchored (off-diagonal) projections solve coupled."""
+    n = M.shape[-1]
+    km = keep[..., None, :] & keep[..., :, None]
+    eye = torch.eye(n, dtype=M.dtype, device=M.device)
+    A = torch.where(km, M, eye)
+    rhs = torch.where(keep, u, torch.zeros_like(u))
+    z = torch.linalg.solve_ex(A, rhs[..., None])[0][..., 0]
+    return torch.where(keep, z, torch.zeros_like(z))
+
+
+def chi2_from_eig_x(w, V, M, AtWb, btWb, s, aR=None):
+    """Reference-cutoff chi^2 from eigenpairs (w, V) of X/s with the exact
+    projection M = V'(X/s)V (the float64 branch of chi2_from_eig_x,
+    solve.py:811-858): keep = |w| > eps max|w|, z the kept-block solve,
+    chi2 = btWb - u'z/s - C'(aR)C with u = V'AtWb, C = Vz/s.  ``M=None``
+    means M = diag(w) exactly (a true eigenbasis): the kept solve is then
+    the division it reduces to.  ``aR``: alpha R inside X, [n, n] shared or
+    batched, or None for alpha = 0."""
+    ub = _mv(V.transpose(-1, -2), AtWb)
+    z = (_kept_solve(w, ub, EPS64) if M is None
+         else keep_solve(ub, M, _keep_mask(w)))
+    chi2 = btWb - _dot(ub, z) * (1.0 / s)
+    if aR is not None:
+        C = _mv(V, z) / s[..., None]
+        chi2 = chi2 - _dot(C, _mv(aR, C))
+    return chi2
+
+
+# ---------------------------------------------------------------------------
+# M-shift anchors (solve.py:870-992, 1437-1524; float64 branches)
+# ---------------------------------------------------------------------------
+
+ANCHOR_KEYS = ("a_log", "V", "s", "M", "P", "ub")
+
+
+def make_anchor(a_log, w, V, s, R, AtWb):
+    """An M-shift anchor from the eigendecomposition (w, V, s) of
+    X(10^a_log)/s (a_log = -inf for AtWA alone): the float64 branch of
+    make_anchor_x (solve.py:898-914).  M = diag(w) exactly, P = V'RV in raw
+    R units, ub = V'AtWb."""
+    return {"a_log": a_log, "V": V, "s": s, "M": torch.diag_embed(w),
+            "P": project(R, V), "ub": _mv(V.transpose(-1, -2), AtWb)}
+
+
+def select_anchor(cond, a, b):
+    """Per record: anchor a where cond, else b."""
+    out = {}
+    for key in ANCHOR_KEYS:
+        c = cond.reshape(cond.shape + (1,) * (a[key].dim() - cond.dim()))
+        out[key] = torch.where(c, a[key], b[key])
+    return out
+
+
+def anchor_shift_M(anchor, m, k):
+    """M(alpha)/s* = M* + ((alpha - alpha*)/s*) P at alpha = m 2^k (the
+    float64 branch of _anchor_shift_M, solve.py:920-925).  alpha* is the
+    exact 10**a*, alpha the float32-mantissa split: the two forms differ by
+    ~1e-8 relative at a* itself, as in the JAX package."""
+    a_log = anchor["a_log"]
+    a_star = torch.where(torch.isneginf(a_log), torch.zeros_like(a_log),
+                         torch.pow(10.0, a_log))
+    a = m * torch.exp2(k)
+    return anchor["M"] + ((a - a_star) / anchor["s"])[:, None, None] * anchor["P"]
+
+
+def _anchor_chi2(anchor, m, k, z, btWb):
+    """chi2 = btWb - ub'z/s - alpha z'Pz/s^2 at alpha = m 2^k."""
+    s = anchor["s"]
+    chi2 = btWb - _dot(anchor["ub"], z) * (1.0 / s)
+    zPz = _dot(z, _mv(anchor["P"], z))
+    return chi2 - m * torch.exp2(k) * zPz / (s * s)
+
+
+def anchor_chi2(anchor, a_log, btWb):
+    """Exact-cutoff chi^2 at alpha = 10^a_log from the anchor, no eigh (the
+    float64 branch of anchor_chi2_x, solve.py:944-986): keep from the
+    diagonal of the shifted projection, the coupled kept-block solve, and
+    chi2 = btWb - ub'z/s - alpha z'Pz/s^2."""
+    m, k = pow10_split(a_log)
+    M = anchor_shift_M(anchor, m, k)
+    keep = _keep_mask(torch.diagonal(M, dim1=-2, dim2=-1))
+    z = keep_solve(anchor["ub"], M, keep)
+    return _anchor_chi2(anchor, m, k, z, btWb)
+
+
+def final_solve_anchor(anchor, a_log, AtWA, btWb):
+    """Coefficients, covariance and chi^2 at alpha = 10^a_log from the
+    anchor (the float64 branch of final_solve_anchor_x,
+    solve.py:1437-1519): the gelsd cutoff for C, the pinv cutoff for the
+    covariance, which inverts the identity-padded kept_H block of the
+    shifted projection: dC = V Minv G Minv V' / s, G = V'(AtWA/s)V."""
+    m, k = pow10_split(a_log)
+    M = anchor_shift_M(anchor, m, k)
+    w = torch.diagonal(M, dim1=-2, dim2=-1)
+    n = w.shape[-1]
+    keep_C = _keep_mask(w)
+    keep_H = _keep_mask(w, float(n) * EPS64)
+    z = keep_solve(anchor["ub"], M, keep_C)
+    V, s = anchor["V"], anchor["s"]
+    Vt = V.transpose(-1, -2)
+    C = _mv(V, z) / s[:, None]
+    kmH = keep_H[..., None, :] & keep_H[..., :, None]
+    eye = torch.eye(n, dtype=M.dtype, device=M.device)
+    Minv = torch.linalg.inv_ex(torch.where(kmH, M, eye))[0]
+    Minv = torch.where(kmH, Minv, torch.zeros_like(Minv))
+    G = (Vt @ (AtWA / s[:, None, None])) @ V
+    dC = (V @ (Minv @ G @ Minv) @ Vt) / s[:, None, None]
+    return C, dC, _anchor_chi2(anchor, m, k, z, btWb)
+
+
+# ---------------------------------------------------------------------------
+# the whitened pencil (solve.py:1734-1795, non-TPU branches)
+# ---------------------------------------------------------------------------
+
+WHITEN_JITTER = 1e-12  # AtWA's eigenvalues are clipped at this times the max
+
+
+def whiten_pencil(R, eig_AtWA):
+    """One-time whitening of the pencil (AtWA, R) for O(nbasis) alpha
+    scans: with AtWA = V W V', B^-1 = W~^-1/2 V' (W~ clipped at
+    WHITEN_JITTER max W), G = B^-1 R B^-T = Q Lam Q'.  R [n, n];
+    ``eig_AtWA``: (w [B, n], V [B, n, n]) of AtWA on the RAW scale.
+    Returns (lam [B, n], Q [B, n, n], Binv [B, n, n])."""
+    w, V = eig_AtWA
+    n = w.shape[-1]
+    wmax = w.abs().amax(-1, keepdim=True)
+    floor = WHITEN_JITTER * torch.where(wmax > 0, wmax, torch.ones_like(wmax))
+    w_safe = torch.maximum(w, floor)
+    Binv = (w_safe ** -0.5)[..., :, None] * V.transpose(-1, -2)
+    sR = torch.trace(R) / n
+    sR = torch.where(sR.abs() > 0, sR.abs(), torch.ones_like(sR))
+    G = Binv @ (R / sR) @ Binv.transpose(-1, -2)
+    G = 0.5 * (G + G.transpose(-1, -2))
+    sG = torch.diagonal(G, dim1=-2, dim2=-1).abs().sum(-1) / n + 1e-300
+    lam, Q = eigh(G / sG[:, None, None])
+    return lam * (sG * sR)[:, None], Q, Binv
+
+
+def whitened_chi2(a_log, lam, u, btWb):
+    """chi^2(10^a_log) from whitened quantities (u = Q'B^-1 AtWb):
+    sum u^2 (d^2 - 2d) + btWb, d = 1/(1 + alpha lam), alpha the float32-
+    mantissa split (whitened_chi2_split, solve.py:1789-1795).  a_log is
+    [B] or [B, npts]; lam, u [B, n]; btWb [B]."""
+    m, k = pow10_split(a_log)
+    extra = (1,) * (a_log.dim() - 1)
+    lam = lam.reshape(lam.shape[:1] + extra + lam.shape[1:])
+    u = u.reshape(lam.shape)
+    al = m[..., None] * lam * torch.exp2(k)[..., None]
+    d = 1.0 / (1.0 + al)
+    return (u * u * (d * d - 2.0 * d)).sum(-1) + btWb.reshape(btWb.shape + extra)
+
+
+def deflated_diag(M):
+    """Second-order-corrected eigenvalue estimates from a projection M,
+    w_i ~ M_ii - sum_j M_ij^2 / (M_jj - M_ii) over reliably separated
+    pairs, clamped into [min(d, 0), max(d, 0)] (the float64 branch of
+    _deflated_diag_x, solve.py:1002-1049)."""
+    d = torch.diagonal(M, dim1=-2, dim2=-1)
+    n = d.shape[-1]
+    eye = torch.eye(n, dtype=torch.bool, device=M.device)
+    den = d[..., None, :] - d[..., :, None]  # den[i, j] = d_j - d_i
+    ad = d.abs()
+    reliable = den.abs() > 0.5 * (ad[..., None, :] + ad[..., :, None])
+    num = torch.where(reliable & ~eye, M * M, torch.zeros_like(M))
+    corr = (num / torch.where(den.abs() > TINY64, den,
+                              torch.ones_like(den))).sum(-1)
+    h = d - corr
+    zero = torch.zeros_like(d)
+    h = torch.minimum(torch.maximum(h, torch.minimum(d, zero)),
+                      torch.maximum(d, zero))
+    return torch.where(h.abs() < TINY64, torch.sign(d) * TINY64, h)
