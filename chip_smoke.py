@@ -31,6 +31,20 @@ non-zero:
   4c. fit     the 64-record window in fast mode and in gcv (exact) mode,
               each against its own window oracle (..._window64_fast.npz,
               ..._window64_gcv.npz): NaN set and W-weighted field;
+  4d. fit     the fault the host placement of AtWA's eigendecomposition
+              repairs: the whole seed-2 and seed-3 days in exact mode, each
+              against its JAX CPU float64 day oracle
+              (tests/oracle/day1000_seed{2,3}_oracle.npz): the oracle's NaN
+              set, no negative chi2, chi2 bars; records/s and the seconds of
+              the host eigendecompositions;
+  4e. fit     the time axis: the seed-1 day with REGULARIZATION_PROFILE,
+              TIME_COUPLING and TIME_SMOOTHING set, against the JAX CPU
+              float64 oracle of the same day and configuration
+              (tests/oracle/day1000_seed1_timeaxis.npz, scripts/
+              window_oracle.py timeaxis): the independent fit, the joint
+              solve fed the oracle's alphas (1e-8 in the W-weighted field),
+              the joint fit end to end, the records the coupling carries,
+              and the time spline at the record mid-times;
   5. product  the main path's product half on phase 4b's coefficients:
               Estimate.evaluate_records of 8 records on the 512x512x128
               grid with the FoV mask, through the kernel (launch count >
@@ -38,7 +52,9 @@ non-zero:
               against the float64 point API.
 Then a JSON line with the kernels, and last {"ok": true, "device": ...}.
 The coefficient file goes through h5py when it is installed; otherwise
-the same classes run on in-memory data (h5py: absent).
+the same classes run on in-memory data (h5py: absent), as on the card,
+which has neither h5py nor matplotlib: phases 4d and 4e take that branch,
+and Validate's PNG is held on the CPU only (tests/test_torch_grad_validate.py).
 """
 
 import contextlib
@@ -70,7 +86,9 @@ from volumetricinterp_tpu_torch.io.synth import (  # noqa: E402
 from volumetricinterp_tpu_torch.models.sphharmlag import Model  # noqa: E402
 from volumetricinterp_tpu_torch.ops import fit as ops_fit  # noqa: E402
 from volumetricinterp_tpu_torch.ops import grid_eval_cuda, solve  # noqa: E402
+from volumetricinterp_tpu_torch.ops import timejoint  # noqa: E402
 from volumetricinterp_tpu_torch.ops.grid_eval import GridEvaluator  # noqa: E402
+from volumetricinterp_tpu_torch.ops.timesmooth import eval_time_spline  # noqa: E402
 
 EPOCH = dt.datetime(1970, 1, 1)
 # the production order (bench.py's model configuration)
@@ -86,14 +104,19 @@ LONCP = 262
 [TPU]
 QUAD_MODE = gauss
 """
-# scripts/day_check.py's fit, in a given method and mode
+# scripts/day_check.py's fit, in a given method and mode (extra: more
+# [DEFAULT] lines)
 FIT_CFG = """
 [DEFAULT]
 FILENAME = {raw}
 OUTPUTFILENAME = {out}
 REGULARIZATION_LIST = 0thorder
 REGULARIZATION_METHOD = {method}
-""" + MODEL_CFG + "REGPARAM_MODE = {mode}\n"
+{extra}""" + MODEL_CFG + "REGPARAM_MODE = {mode}\n"
+# phase 4e's options, those of scripts/window_oracle.py timeaxis
+TIME_AXIS_CFG = ("REGULARIZATION_PROFILE = chapman,1e11,300,50\n"
+                 "TIME_COUPLING = 1e-4\nTIME_SMOOTHING = gcv\n")
+JOINT_TOL = 1e-8  # W-weighted field, joint solve at the oracle's alphas
 DAY = dict(nrec=1000, seed=1, nan_frac=0.03, bad_frac=0.01, t0=1480286700.0,
            cadence=60.0)
 KERNEL_TOL = 5e-5  # of the sup: float32 theta resolution (tests/test_grid_eval.py)
@@ -379,37 +402,47 @@ def phase_kernel(device="cuda", shapes=KERNEL_SHAPES, reps=20):
 _DAYS = {}  # the in-memory synthetic days, made once a run
 
 
-def fit_day(workdir, device, method, mode, nwin=None, day=DAY, cli=False):
+def fit_day(workdir, device, method, mode, nwin=None, day=DAY, cli=False,
+            extra=""):
     """Fit the synthetic day's first nwin records (all when None) in one
-    setting.  With h5py the day is an AMISR file and the coefficients a
-    file, fitted through cli.main when ``cli``; without, the same classes
-    run on in-memory data.  Returns a dict: the Interpolate (its
-    read_datafile and model serve the checks), C, chi2, reg, est (the
-    result's Estimate), the seconds of the synthetic day, of the fit
-    (calc_coeffs or cli.main) and of fit_records, eigh (matrices the fit
-    decomposed) and guarded (records whose negative chi2 was reported as
-    the whitened chi2)."""
-    raw = workdir / "day.h5"
-    out = workdir / f"coef_{method}_{mode}.h5" if HAVE_H5PY else ""
-    text = FIT_CFG.format(raw=raw, out=out, method=method, mode=mode)
+    setting (``extra``: more [DEFAULT] lines).  With h5py the day is an
+    AMISR file and the coefficients a file, fitted through cli.main when
+    ``cli``; without, the same classes run on in-memory data.  Returns a
+    dict: the Interpolate (its read_datafile and model serve the checks;
+    its ``independent`` holds the per-record fits before any time
+    coupling), C, chi2, reg, est (the result's Estimate), the seconds of
+    the synthetic day, of the fit (calc_coeffs or cli.main) and of
+    fit_records, eigh (matrices the fit decomposed), host_eigh and host_s
+    (those of them decomposed on the host, and those calls' seconds) and
+    guarded (records whose negative chi2 was reported as the whitened
+    chi2)."""
+    seed = day["seed"]
+    raw = workdir / f"day{seed}.h5"
+    tag = "timeaxis_" if extra else ""
+    out = workdir / f"coef_{tag}{method}_{mode}_{seed}.h5" if HAVE_H5PY else ""
+    text = FIT_CFG.format(raw=raw, out=out, method=method, mode=mode,
+                          extra=extra)
     model = Model(Config.from_text(text))
     t0 = time.perf_counter()
-    if HAVE_H5PY:
-        if not raw.exists():
-            write_synthetic_amisr(str(raw), smooth_in_model=model, **day)
-        interp = Interpolate(text, device=device)
-    else:
+    if HAVE_H5PY and not raw.exists():
+        write_synthetic_amisr(str(raw), smooth_in_model=model, **day)
+    if not HAVE_H5PY:
         key = json.dumps(day, sort_keys=True)
         if key not in _DAYS:
             _DAYS[key] = synthetic_amisr_datasets(smooth_in_model=model, **day)
         data = _DAYS[key]
 
-        class MemInterpolate(Interpolate):
+    class SmokeInterpolate(Interpolate):
+        def _run_fit_pipeline(self, *args, **kw):
+            self.independent = super()._run_fit_pipeline(*args, **kw)
+            return self.independent
+
+        if not HAVE_H5PY:
             def read_datafile(self, filename):
                 return qc_datasets(data, self.param, self.errlim,
                                    self.chi2lim, self.goodfitcode)
 
-        interp = MemInterpolate(text, device=device)
+    interp = SmokeInterpolate(text, device=device)
     synth_s = time.perf_counter() - t0
 
     start = end = None
@@ -417,6 +450,7 @@ def fit_day(workdir, device, method, mode, nwin=None, day=DAY, cli=False):
         start = EPOCH + dt.timedelta(seconds=day["t0"])
         end = start + dt.timedelta(seconds=day["cadence"] * nwin)
     eigh0, neg0 = solve.eigh_matrices, ops_fit.negative_chi2_reports
+    host0, host_s0 = solve.host_eigh_matrices, solve.host_eigh_seconds
     t0 = time.perf_counter()
     if cli and HAVE_H5PY:
         cfg = workdir / f"{method}_{mode}.ini"
@@ -440,8 +474,10 @@ def fit_day(workdir, device, method, mode, nwin=None, day=DAY, cli=False):
         torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     res = dict(interp=interp, C=C, chi2=chi2, reg=reg, synth_s=synth_s,
-               fit_s=fit_s, fit_rec_s=prof["fit_records"],
+               fit_s=fit_s, fit_rec_s=prof["fit_records"], prof=prof,
                eigh=solve.eigh_matrices - eigh0,
+               host_eigh=solve.host_eigh_matrices - host0,
+               host_s=solve.host_eigh_seconds - host_s0,
                guarded=ops_fit.negative_chi2_reports - neg0)
 
     if HAVE_H5PY:
@@ -576,18 +612,22 @@ def phase_fit_default(workdir, device="cuda", nwin=64, day=DAY):
         "W-weighted field vs the exact window oracle",
         wfield(fit, C_o, nwin), WFIELD_MEDIAN_TOL, WFIELD_MAX_TOL)
     dla_w = dlog10(reg[:nwin], reg_o)
-    # AtWA's, the whitened pencil's and two anchors' a record, R's once
-    batches = [b for b in chunk_sizes(nrec) for _ in range(4)] + [1]
-    check(sum(batches) == fit["eigh"], f"{fit['eigh']} eighs counted, "
-          f"{sum(batches)} expected")
+    # on the card the whitened pencil's and two anchors' a record, R's
+    # once; on the host AtWA's a record
+    batches = [b for b in chunk_sizes(nrec) for _ in range(3)] + [1]
+    check(sum(batches) + nrec == fit["eigh"] and fit["host_eigh"] == nrec,
+          f"{fit['eigh']} eighs counted, {fit['host_eigh']} on the host; "
+          f"{sum(batches)} + {nrec} expected")
     eigh_s = _eigh_seconds(batches, device)
     print(f"phase 4b fit, exact (the shipped default): "
           f"{'cli.main' if HAVE_H5PY else 'Interpolate.calc_coeffs (h5py absent)'}"
           f" on the whole {nrec}-record day: {fit['fit_s']:.3f} s, of which "
           f"fit_records {fit['fit_rec_s']:.3f} s = "
           f"{nrec / fit['fit_rec_s']:.3f} records/s; {fit['eigh'] / nrec:.3f} "
-          f"eighs a record, timed alone at the fit's batch shapes: "
-          f"{eigh_s:.3f} s; {int(nan.sum())} NaN as the oracle, 0 negative "
+          f"eighs a record, on the card {sum(batches) / nrec:.3f}, timed "
+          f"alone at the fit's batch shapes: {eigh_s:.3f} s, on the host "
+          f"(AtWA's) {fit['host_eigh'] / nrec:.3f}: {fit['host_s']:.3f} s in "
+          f"host_eigh; {int(nan.sum())} NaN as the oracle, 0 negative "
           f"chi2 ({fit['guarded']} records reported the whitened chi2 at "
           f"the root for a negative one); vs exact oracle: chi2 rel median {rel_med:.4e} max "
           f"{rel_max:.4e}, |dlog10 alpha| median {np.median(dla):.4e} max "
@@ -595,6 +635,150 @@ def phase_fit_default(workdir, device="cuda", nwin=64, day=DAY):
           f"field rel median {wf_med:.4e} max {wf_max:.4e}, |dlog10 alpha| "
           f"median {np.median(dla_w):.4e} max {dla_w.max():.4e}", flush=True)
     return fit["est"]
+
+
+def day_oracle(seed):
+    """The JAX package's CPU float64 exact fit of the seed's day
+    (scripts/day_check.py --oracle --seed N): chi2 and reg."""
+    return np.load(ROOT / "tests" / "oracle" / f"day1000_seed{seed}_oracle.npz")
+
+
+def phase_fit_fault(workdir, device="cuda", seeds=(2, 3), day=DAY):
+    """Phase 4d: the whole seed-2 and seed-3 days in exact mode, each held
+    to its day oracle's NaN set (the card's cuSOLVER AtWA eigh NaN-failed
+    records 441, and 547 and 653, that the oracle fits), no negative chi2,
+    and the chi2 bars."""
+    for seed in seeds:
+        fit = fit_day(workdir, device, "chi2", "exact", None,
+                      dict(day, seed=seed))
+        nrec = day["nrec"]
+        chi2 = fit["chi2"]
+        o = day_oracle(seed)
+        nan = np.isnan(chi2)
+        check(np.array_equal(nan, np.isnan(o["chi2"][:nrec])),
+              f"seed {seed}: NaN records {np.flatnonzero(nan).tolist()}, the "
+              f"oracle's {np.flatnonzero(np.isnan(o['chi2'])).tolist()}")
+        check((chi2[~nan] >= 0).all(),
+              f"seed {seed}: {int((chi2[~nan] < 0).sum())} negative chi2")
+        rel = np.abs(chi2 - o["chi2"][:nrec]) / o["chi2"][:nrec]
+        med, mx = held_to_bars(f"seed {seed}: chi2 vs its day oracle", rel,
+                               CHI2_MEDIAN_TOL, CHI2_MAX_TOL)
+        dla = dlog10(fit["reg"], o["reg"][:nrec, 0])
+        print(f"phase 4d fit, exact, seed {seed}, the whole {nrec}-record "
+              f"day: calc_coeffs {fit['fit_s']:.3f} s, fit_records "
+              f"{fit['fit_rec_s']:.3f} s = {nrec / fit['fit_rec_s']:.3f} "
+              f"records/s; AtWA's eigendecompositions on the host: "
+              f"{fit['host_eigh']} in {fit['host_s']:.3f} s of host_eigh; "
+              f"{int(nan.sum())} NaN as the oracle, 0 negative chi2 "
+              f"({fit['guarded']} reported the whitened chi2); vs its day "
+              f"oracle: chi2 rel median {med:.4e} max {mx:.4e}, |dlog10 "
+              f"alpha| median {np.median(dla):.4e} max {dla.max():.4e}",
+              flush=True)
+
+
+def phase_time_axis(workdir, device="cuda", day=DAY):
+    """Phase 4e: the seed-1 day with TIME_AXIS_CFG against
+    tests/oracle/day1000_seed1_timeaxis.npz.  Every number is printed
+    before any is checked.
+
+    The chi2 max bar of the independent fit is CHI2_MAX_TOL plus, per
+    record, the reference's own spread between its fits of this day with
+    and without the profile (tests/oracle/day1000_seed1_oracle.npz): at the
+    roots the pull is a rounding-sized change of the normal equations, and
+    on the cutoff-wall staircase it moves the JAX package's own chi2 by up
+    to 0.229 (median 1.9e-2)."""
+    fit = fit_day(workdir, device, "chi2", "exact", None, day,
+                  extra=TIME_AXIS_CFG)
+    interp, nrec = fit["interp"], day["nrec"]
+    o = np.load(ROOT / "tests" / "oracle" / "day1000_seed1_timeaxis.npz")
+    plain = day_oracle(day["seed"])["chi2"]
+    C_ind, _, chi2_ind, rp = interp.independent
+    field = lambda C, C_ref: wfield(dict(fit, C=C), C_ref, nrec)  # noqa: E731
+    stat = lambda v: (float(np.nanmedian(v)), float(np.nanmax(v)))  # noqa: E731
+    # the profile-pulled independent fit
+    nan = np.isnan(chi2_ind)
+    rel = np.abs(chi2_ind - o["chi2"]) / o["chi2"]
+    spread = np.abs(o["chi2"] - plain) / plain
+    c2, sp = stat(rel), stat(spread)
+    over = np.flatnonzero(rel > CHI2_MAX_TOL)
+    wf = stat(field(C_ind, o["C"]))
+    # the joint solve alone, on the card, at the oracle's alphas and on the
+    # statistics of the oracle's own data (the synthetic day projects its
+    # truth by a least-squares solve at rcond 1e-10, whose last bits follow
+    # the LAPACK build: this machine's day and the joint solve on its
+    # statistics are printed beside)
+    _, lat, lon, alt, value, error = interp.read_datafile(interp.filename)
+    A = torch.as_tensor(interp.model.basis(lat, lon, alt), device=device)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        la = torch.as_tensor(np.log10(np.where(o["reg"] > 0, o["reg"], 0.0)),
+                             device=device)
+        dvalue = float(np.nanmax(np.abs(value - o["value"])
+                                 / np.abs(o["value"])))
+    R = torch.as_tensor(interp._reg_matrices()["0thorder"][None],
+                        device=device)
+    beta = interp.config.fit.time_coupling
+    wf_at = []
+    for v, e in ((o["value"], o["error"]), (value, error)):
+        t0 = time.perf_counter()
+        AtWA, AtWb = timejoint.time_stats(
+            *(torch.as_tensor(x, device=device) for x in (v, e)), A)
+        C_at = timejoint.joint_time_solve(AtWA, AtWb, R, la,
+                                          beta).cpu().numpy()
+        joint_s = time.perf_counter() - t0
+        wf_at.append(float(field(C_at, o["C_joint"]).max()))
+    # the joint fit end to end, and the records it carries
+    wf_j = stat(field(fit["C"], o["C_joint"]))
+    carried = int((nan & np.isfinite(fit["chi2"])).sum())
+    carried_o = int((np.isnan(o["chi2"]) & np.isfinite(o["chi2_joint"])).sum())
+    # the time spline at the record mid-times
+    tf = interp.timefit
+    mt = np.mean(interp.time, axis=1)
+    Cs = eval_time_spline(tf, mt)
+    Cs_o = eval_time_spline({k: o[k] for k in ("knots", "S", "lam")}, mt)
+    wf_s = stat(field(Cs, Cs_o))
+    prof = fit["prof"]
+    print(f"phase 4e fit, the time axis (REGULARIZATION_PROFILE = "
+          f"chapman,1e11,300,50, TIME_COUPLING = 1e-4, TIME_SMOOTHING = gcv) "
+          f"on the whole {nrec}-record day: calc_coeffs {fit['fit_s']:.3f} s, "
+          f"fit_records {prof['fit_records']:.3f} s, time_coupled_solve "
+          f"{prof['time_coupled_solve']:.3f} s, time_spline "
+          f"{prof['time_spline']:.3f} s; independent fit: {int(nan.sum())} "
+          f"NaN (oracle {int(np.isnan(o['chi2']).sum())}), "
+          f"{int((rp == 0).sum())} too smooth (oracle "
+          f"{int((o['reg'] == 0).sum())}), {int((chi2_ind < 0).sum())} "
+          f"negative chi2, chi2 rel median {c2[0]:.4e} max {c2[1]:.4e} (over "
+          f"{CHI2_MAX_TOL}: records {over.tolist()} at "
+          f"{np.round(rel[over], 4).tolist()}, the reference's own spread "
+          f"there {np.round(spread[over], 4).tolist()}; spread median "
+          f"{sp[0]:.4e} max {sp[1]:.4e}), W-weighted field median "
+          f"{wf[0]:.4e} max {wf[1]:.4e}; joint solve at the oracle's alphas "
+          f"({joint_s:.3f} s with its statistics): W-weighted field max "
+          f"{wf_at[0]:.4e} on the oracle's data (bar {JOINT_TOL}), "
+          f"{wf_at[1]:.4e} on this machine's day (values within {dvalue:.3e} "
+          f"relative of the oracle's); joint fit: field median "
+          f"{wf_j[0]:.4e} max {wf_j[1]:.4e}, {carried} NaN-filled records "
+          f"carried (oracle {carried_o}); spline (lam {tf['lam']:.4g}, oracle "
+          f"{float(o['lam']):.4g}, {tf['S'].shape[0]} coefficients a "
+          f"trajectory): field median {wf_s[0]:.4e} max {wf_s[1]:.4e}",
+          flush=True)
+    check(np.array_equal(nan, np.isnan(o["chi2"])),
+          "independent fit: NaN set differs from the oracle's")
+    check((chi2_ind[~nan] >= 0).all(), "independent fit: negative chi2")
+    check(np.array_equal(rp == 0, o["reg"] == 0),
+          "independent fit: too-smooth records differ from the oracle's")
+    check(c2[0] <= CHI2_MEDIAN_TOL and np.all(
+        rel[~nan] <= CHI2_MAX_TOL + spread[~nan]),
+        "independent fit: chi2 vs the oracle beyond its bars")
+    check(wf[0] <= WFIELD_MEDIAN_TOL and wf[1] <= WFIELD_MAX_TOL,
+          "independent fit: W-weighted field beyond its bars")
+    check(wf_at[0] <= JOINT_TOL, "joint solve at the oracle's alphas: "
+          f"W-weighted field beyond {JOINT_TOL}")
+    check(np.isfinite(fit["C"]).all(), "joint fit: non-finite coefficients")
+    check(wf_j[0] <= WFIELD_MEDIAN_TOL and wf_j[1] <= WFIELD_MAX_TOL,
+          "joint fit: W-weighted field beyond its bars")
+    check(carried == carried_o, "joint fit: carried records differ")
+    check(wf_s[0] <= WFIELD_MEDIAN_TOL and wf_s[1] <= WFIELD_MAX_TOL,
+          "time spline: W-weighted field beyond its bars")
 
 
 def phase_fit_windows(workdir, device="cuda", nwin=64, day=DAY):
@@ -718,6 +902,8 @@ def main():
     with tempfile.TemporaryDirectory(prefix=".smoke-", dir=ROOT) as tmp:
         phase_fit(Path(tmp))
         est = phase_fit_default(Path(tmp))
+        phase_fit_fault(Path(tmp))
+        phase_time_axis(Path(tmp))
         phase_fit_windows(Path(tmp))
         phase_product(est)
     kernel["launches"] = grid_eval_cuda.launches

@@ -46,6 +46,8 @@ setup(
             "volumetricinterp=volumetricinterp_tpu.cli:main",
             "volumetricinterp-validate=volumetricinterp_tpu.cli:validate_main",
             "volumetricinterp-torch=volumetricinterp_tpu_torch.cli:main",
+            "volumetricinterp-torch-validate="
+            "volumetricinterp_tpu_torch.cli:validate_main",
         ],
     },
 )

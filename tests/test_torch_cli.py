@@ -131,12 +131,15 @@ def test_cli_files_interchange(fitted, writer):
 
 
 def test_cli_unported_routes_raise(tmp_path, capsys):
+    """--distributed raises naming its ROADMAP entry; --validate and
+    validate_main are ported and read the configuration first."""
     cfg = str(tmp_path / "none.ini")
-    for extra in ("--validate", "--distributed"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            main([cfg, extra, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="validate and CLI"):
-        validate_main([cfg])
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: parallel"):
+        main([cfg, "--distributed", "--device", "cpu"])
+    for run in (lambda: main([cfg, "--validate", "--device", "cpu"]),
+                lambda: validate_main([cfg, "--device", "cpu"])):
+        with pytest.raises(FileNotFoundError):
+            run()
     with pytest.raises(SystemExit):
         main(["--help"])
     assert "REGPARAM_MODE = exact" in capsys.readouterr().out

@@ -187,11 +187,14 @@ def test_resume_of_a_finished_file(day, tmp_path):
 
 
 def test_unported_options_raise(day):
-    for extra in ("TIME_SMOOTHING = gcv", "TIME_COUPLING = 1e-4",
-                  "REGULARIZATION_PROFILE = chapman,1e11,300,50"):
-        text = day["text"].replace("[MODEL]", f"{extra}\n\n[MODEL]")
-        with pytest.raises(NotImplementedError):
-            Interpolate(text, device="cpu").calc_coeffs()
+    """The options still to port raise naming their ROADMAP entry; the
+    port's default device, CUDA, raises without a card."""
+    for old, new in (("NAME = sphharmlag", "NAME = radbasfun"),
+                     ("[TPU]", "[TPU]\nBASIS_IMPL = series")):
+        assert old in day["text"]
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue 1: radbasfun and series"):
+            Interpolate(day["text"].replace(old, new), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             Interpolate(day["text"])  # device="cuda" is the default

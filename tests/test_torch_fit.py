@@ -157,13 +157,13 @@ def test_manual_matches_jax(records):
 
 
 def test_unported_modes_raise(records):
-    """Data-informed regularization (profile taus) is still unported: a
-    configuration that asks for it raises before any data is read.  An
+    """A regularization profile of an unknown kind (only 'chapman' is
+    defined, as in the JAX package) raises before any data is read.  An
     unknown method or mode is an error."""
     maxl, (values, errors, A, R) = records
     cfg = CFG.replace("MAXL = 3", f"MAXL = {maxl}").replace(
-        "[MODEL]", "REGULARIZATION_PROFILE = chapman,1e11,300,50\n[MODEL]")
-    with pytest.raises(NotImplementedError, match="profile taus"):
+        "[MODEL]", "REGULARIZATION_PROFILE = gaussian,1e11,300,50\n[MODEL]")
+    with pytest.raises(ValueError, match="REGULARIZATION_PROFILE"):
         Interpolate(cfg, device="cpu").calc_coeffs()
     with pytest.raises(ValueError):
         fit_records(values, errors, A, R, regparam_mode="exakt", device="cpu")

@@ -20,12 +20,16 @@ import numpy as np
 import torch
 import volumetricinterp_tpu_torch as vt
 import volumetricinterp_tpu_torch.cli
+import volumetricinterp_tpu_torch.validate
 from volumetricinterp_tpu_torch.config import Config
 from volumetricinterp_tpu_torch.io.amisr import qc_datasets
 from volumetricinterp_tpu_torch.io.synth import synthetic_amisr_datasets
 from volumetricinterp_tpu_torch.models.sphharmlag import Model
 from volumetricinterp_tpu_torch.ops.fit import fit_records
 from volumetricinterp_tpu_torch.ops.grid_eval import GridEvaluator
+from volumetricinterp_tpu_torch.ops.timejoint import fit_time_coupled
+from volumetricinterp_tpu_torch.ops.timesmooth import (eval_time_spline,
+                                                       fit_time_spline)
 
 cfg = Config.from_text('''
 [DEFAULT]
@@ -37,12 +41,22 @@ MAXL = 3
 QUAD_MODE = gauss
 ''')
 model = Model(cfg)
-d = synthetic_amisr_datasets(nrec=3, seed=2, smooth_in_model=model)
-_, lat, lon, alt, v, e = qc_datasets(d, "dens", [1e10, 1e13], [0.1, 10],
-                                     [1, 2, 3, 4])
+d = synthetic_amisr_datasets(nrec=6, seed=2, smooth_in_model=model)
+ut, lat, lon, alt, v, e = qc_datasets(d, "dens", [1e10, 1e13], [0.1, 10],
+                                      [1, 2, 3, 4])
 A = model.basis(lat, lon, alt)
-C, dC, chi2, rp = fit_records(v, e, A, model.eval_psi()[None], device="cpu")
-assert torch.isfinite(chi2).all() and (rp > 0).all()
+tau = model.eval_tau(lambda z: 1e11 * np.exp(-z)).reshape(1, -1)
+C, dC, chi2, rp = fit_records(v, e, A, model.eval_psi()[None], device="cpu",
+                              reg_taus=tau)
+assert torch.isfinite(chi2).all() and (rp >= 0).all()
+Cj, chi2j = fit_time_coupled(v, e, A, model.eval_psi()[None],
+                             np.log10(rp.numpy() + 1e-30), 1e-4, device="cpu")
+tf = fit_time_spline(ut.mean(axis=1), Cj, lam="gcv")
+assert np.isfinite(eval_time_spline(tf, ut[2].mean())).all()
+G = model.grad_basis(lat, lon, alt)
+assert G.shape == A.shape[:-1] + (3, model.nbasis) and np.isfinite(G).all()
+vec = model.inverse_transform(lat, lon, alt, G[..., 0])
+assert vec.shape == A.shape[:-1] + (3,)
 _, t, _ = model.transform_coord(lat, lon, alt)
 ev = GridEvaluator(model, (t.min(), t.max()), device="cpu")
 out = ev.eval_records(C.numpy(), lat, lon, alt).numpy()

@@ -21,7 +21,8 @@ inside the functions that read or write files.  The JAX package
 
 from .interpolate import Interpolate
 from .estimate import Estimate
+from .validate import Validate
 
 __version__ = "0.1.0"
 
-__all__ = ["Interpolate", "Estimate", "__version__"]
+__all__ = ["Interpolate", "Estimate", "Validate", "__version__"]

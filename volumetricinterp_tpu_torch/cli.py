@@ -1,11 +1,13 @@
-"""Console entry point of the PyTorch port (the fit route of
-volumetricinterp_tpu/cli.py, reference run_volumetricinterp.py:14-35).
+"""Console entry points of the PyTorch port (volumetricinterp_tpu/cli.py,
+reference run_volumetricinterp.py:14-35 and run_validate.py:16-28).
 
-    volumetricinterp-torch config.ini [--device cpu]
+    volumetricinterp-torch [--validate] config.ini [--device cpu]
 
---starttime/--endtime window the fit, --resume continues a partially
-written output file, --profile prints the phase times, --device picks the
-device (cuda by default; the CPU runs only when asked for).
+--validate fits the [VALIDATE] window and draws its maps (validate_main is
+the same route alone), --starttime/--endtime window the fit, --resume
+continues a partially written output file, --profile prints the phase
+times, --device picks the device (cuda by default; the CPU runs only when
+asked for).
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ def main(argv=None):
                             formatter_class=RawTextHelpFormatter)
     parser.add_argument("config_file", help=_config_help())
     parser.add_argument("--validate", action="store_true",
-                        help="not ported to the PyTorch package yet")
+                        help="fit the [VALIDATE] window and draw its maps")
     parser.add_argument("--starttime", default=None,
                         help="ISO start time (overrides full-file fit)")
     parser.add_argument("--endtime", default=None, help="ISO end time")
@@ -48,9 +50,7 @@ def main(argv=None):
                         help="print per-phase wall times at the end")
     parser.add_argument("--distributed", action="store_true",
                         help="not ported to the PyTorch package yet")
-    parser.add_argument("--device", default="cuda",
-                        help="torch device of the fit (default cuda; pass "
-                             "cpu to run on the CPU)")
+    _device_arg(parser)
     args = vars(parser.parse_args(argv))
 
     if args["distributed"]:
@@ -58,9 +58,8 @@ def main(argv=None):
             "--distributed is not ported to the PyTorch package yet "
             "(ROADMAP queue 1: parallel)")
     if args["validate"]:
-        raise NotImplementedError(
-            "--validate is not ported to the PyTorch package yet "
-            "(ROADMAP queue 1: validate and CLI)")
+        _validate(args)
+        return
 
     from .interpolate import Interpolate
 
@@ -75,11 +74,32 @@ def main(argv=None):
             print(f"{k:24s} {v:8.3f} s")
 
 
+def _device_arg(parser):
+    parser.add_argument("--device", default="cuda",
+                        help="torch device of the fit (default cuda; pass "
+                             "cpu to run on the CPU)")
+
+
+def _validate(args):
+    from .validate import Validate
+
+    validate = Validate(args["config_file"], device=args["device"])
+    validate.interpolate()
+    validate.create_plots()
+
+
 def validate_main(argv=None):
     """Standalone validation entry (reference run_validate.py:16-28)."""
-    raise NotImplementedError(
-        "validation is not ported to the PyTorch package yet "
-        "(ROADMAP queue 1: validate and CLI)")
+    parser = ArgumentParser(
+        description=(
+            "Validate parameters in a config file by interpolating and "
+            "plotting a short time window."
+        ),
+        formatter_class=RawTextHelpFormatter,
+    )
+    parser.add_argument("config_file", help=_config_help())
+    _device_arg(parser)
+    _validate(vars(parser.parse_args(argv)))
 
 
 if __name__ == "__main__":

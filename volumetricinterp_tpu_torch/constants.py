@@ -13,3 +13,4 @@ WGS84_A = 6378137.0  # semi-major axis (m)
 WGS84_F = 1.0 / 298.257223563  # flattening
 WGS84_B = WGS84_A * (1.0 - WGS84_F)  # semi-minor axis (m)
 WGS84_E2 = 1.0 - (WGS84_B / WGS84_A) ** 2  # first eccentricity squared
+WGS84_EP2 = (WGS84_A / WGS84_B) ** 2 - 1.0  # second eccentricity squared

@@ -1,8 +1,10 @@
 """Geodetic coordinate transforms.
 
-Host numpy float64 halves (``np_geodetic2ecef``, ``np_geodetic_to_cap``)
-are copies of the JAX package's: the fit's design matrix and Estimate's
-point API transform on the host in exact float64.  ``cap_rotation`` gives
+Host numpy float64 halves (``np_geodetic2ecef``, ``np_geodetic_to_cap``,
+``ecef2geodetic``, ``cap_rotation_axis_angle``, ``rodrigues_rotate``) are
+copies of the JAX package's: the fit's design matrix, Estimate's point API
+and gradients, and Validate's plot grid transform on the host in exact
+float64.  ``cap_rotation`` gives
 the rotation constants of the cap transform, and ``geodetic_to_cap`` is
 the torch transform used by the grid evaluator's plain version; both follow
 models/sphharmlag.py:324-359 of the reference, including its +theta0
@@ -13,7 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .constants import RE, WGS84_A, WGS84_E2
+from .constants import RE, WGS84_A, WGS84_B, WGS84_E2, WGS84_EP2
 
 
 def np_geodetic2ecef(gdlat, gdlon, gdalt):
@@ -27,6 +29,56 @@ def np_geodetic2ecef(gdlat, gdlon, gdalt):
     y = (n + alt) * np.cos(lat) * np.sin(lon)
     z = (n * (1.0 - WGS84_E2) + alt) * sin_lat
     return x, y, z
+
+
+def ecef2geodetic(x, y, z):
+    """ECEF (m) -> geodetic (deg, deg, m), WGS-84, host float64: a Bowring
+    seed and five fixed-point rounds (volumetricinterp_tpu/coords.py:37)."""
+    x, y, z = (np.asarray(a, dtype=np.float64) for a in (x, y, z))
+    p = np.sqrt(x**2 + y**2)
+    theta = np.arctan2(z * WGS84_A, p * WGS84_B)
+    st, ct = np.sin(theta), np.cos(theta)
+    lat = np.arctan2(z + WGS84_EP2 * WGS84_B * st**3,
+                     p - WGS84_E2 * WGS84_A * ct**3)
+    for _ in range(5):
+        sin_lat = np.sin(lat)
+        n = WGS84_A / np.sqrt(1.0 - WGS84_E2 * sin_lat**2)
+        lat = np.arctan2(z + WGS84_E2 * n * sin_lat, p)
+    sin_lat, cos_lat = np.sin(lat), np.cos(lat)
+    n = WGS84_A / np.sqrt(1.0 - WGS84_E2 * sin_lat**2)
+    # altitude: p-based away from the poles, z-based near them
+    alt = np.where(
+        np.abs(cos_lat) > 1e-6,
+        p / np.where(np.abs(cos_lat) < 1e-12, 1.0, cos_lat) - n,
+        z / np.where(np.abs(sin_lat) < 1e-12, 1.0, sin_lat)
+        - n * (1.0 - WGS84_E2))
+    return np.rad2deg(lat), np.rad2deg(np.arctan2(y, x)), alt
+
+
+def cap_rotation_axis_angle(latcp, loncp):
+    """(axis k [3], angle theta0) of the rotation in the cap transform
+    (models/sphharmlag.py:345-349): theta0 the geocentric colatitude of the
+    cap centre at 0 altitude, k horizontal, 90 degrees east of it."""
+    x0, y0, z0 = np_geodetic2ecef(latcp, loncp, 0.0)
+    theta0 = np.arccos(z0 / np.sqrt(x0**2 + y0**2 + z0**2))
+    phi0 = np.arctan2(y0, x0)
+    k = np.array([np.cos(phi0 + np.pi / 2.0), np.sin(phi0 + np.pi / 2.0),
+                  0.0])
+    return k, theta0
+
+
+def rodrigues_rotate(k, theta, vx, vy, vz):
+    """Vectors (vx, vy, vz) rotated by theta about the unit axis k:
+    v cos t + (k x v) sin t + k (k.v)(1 - cos t)."""
+    ct, st = np.cos(theta), np.sin(theta)
+    kx, ky, kz = k[0], k[1], k[2]
+    cx = ky * vz - kz * vy
+    cy = kz * vx - kx * vz
+    cz = kx * vy - ky * vx
+    kdv = kx * vx + ky * vy + kz * vz
+    return (vx * ct + cx * st + kx * kdv * (1.0 - ct),
+            vy * ct + cy * st + ky * kdv * (1.0 - ct),
+            vz * ct + cz * st + kz * kdv * (1.0 - ct))
 
 
 def np_geodetic_to_cap(gdlat, gdlon, gdalt, latcp, loncp):

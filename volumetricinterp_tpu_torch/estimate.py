@@ -2,8 +2,12 @@
 reference estimate.py:13-221 and the JAX package's Estimate).
 
 * ``__call__`` (the point API) runs on the host in exact float64 numpy:
-  design matrix, A @ C, the FoV hull mask and, with calcerr, the field
-  error sqrt(a' dC a).
+  design matrix, A @ C, the FoV hull mask, with calcgrad the gradient
+  G @ C in cap components, with calcerr the field error sqrt(a' dC a)
+  (and with both the gradient's error).
+* ``get_C`` takes the nearest record, interpolates linearly between two
+  records (timeinterp=True), or evaluates the file's /TimeFit spline
+  (timeinterp='spline', covariance from the nearest record).
 * ``grid_eval`` / ``evaluate_records`` (dense grids, keogram/volume
   products) run through the float32 grid evaluator on ``device``: the
   Hopper kernel on the card, with the FoV mask applied inside the kernel,
@@ -32,17 +36,19 @@ class Estimate:
     def __init__(self, coeff_filename, timetol=60.0, timeinterp=False,
                  device="cuda"):
         """timeinterp: False (nearest record within timetol, reference
-        default) or True (linear between bracketing records).  device: where
-        dense grids are evaluated ('cuda' or 'cpu'; no fallback)."""
+        default), True (linear between bracketing records) or 'spline' (the
+        time-smoothed coefficients of the file's /TimeFit payload, written
+        by a fit with TIME_SMOOTHING set).  device: where dense grids are
+        evaluated ('cuda' or 'cpu'; no fallback)."""
         self.device = check_device(device)
-        if timeinterp == "spline":
-            raise NotImplementedError(
-                "timeinterp='spline' is not ported to the PyTorch package yet "
-                "(ROADMAP queue 1: timejoint and timesmooth)")
         self.timetol = timetol
         self.timeinterp = timeinterp
 
         self.loadh5(filename=coeff_filename)
+        if timeinterp == "spline" and self.timefit is None:
+            raise ValueError(
+                "timeinterp='spline' needs a /TimeFit payload; re-run the "
+                "fit with [DEFAULT] TIME_SMOOTHING set (gcv or a number)")
 
         # reconstruct the identical Model from the embedded config text
         # (reference estimate.py:41-50)
@@ -68,39 +74,67 @@ class Estimate:
         self.config_file_text = d["config_file_text"]
         self.chi2 = d.get("chi2")
         self.raw_filename = d.get("raw_filename")
+        self.timefit = d.get("timefit")
 
     def __call__(self, time, gdlat, gdlon, gdalt, calcgrad=False,
                  calcerr=False, check_hull=True):
         """Evaluate the reconstruction at geodetic points for one time, on
-        the host in float64.  Returns P, or (P, err) with calcerr."""
-        if calcgrad:
-            raise NotImplementedError(
-                "calcgrad is not ported to the PyTorch package yet "
-                "(ROADMAP queue 1: gradients and inverse_transform)")
+        the host in float64.  Returns
+            P                    (calcgrad=False, calcerr=False)
+            P, dP                (calcgrad: dP[..., 3] the gradient in cap
+                                 components (z-hat, theta-hat, phi-hat))
+            P, err               (calcerr)
+            P, dP, err, graderr  (both)."""
         C, dC = self.get_C(time)
+        C = np.asarray(C, np.float64)
         A = np.asarray(self.model.basis(gdlat, gdlon, gdalt), np.float64)
-        parameter = A @ np.asarray(C, np.float64)
+        parameter = A @ C
         inside = None
         if check_hull:
             inside = np_hull_mask(self._hull_eqs, gdlat, gdlon, gdalt)
             parameter = np.where(inside, parameter, np.nan)
-        if not calcerr:
-            return parameter
-        dC = np.asarray(dC, np.float64)
-        err = np.sqrt(np.einsum("...i,ij,...j->...", A, dC, A))
-        if check_hull:
-            err = np.where(inside, err, np.nan)
-        return parameter, err
+
+        def masked(x, trailing=0):
+            if not check_hull:
+                return x
+            return np.where(inside.reshape(inside.shape + (1,) * trailing),
+                            x, np.nan)
+
+        outs = [parameter]
+        if calcgrad:
+            G = np.asarray(self.model.grad_basis(gdlat, gdlon, gdalt),
+                           np.float64)  # [..., 3, nbasis]
+            outs.append(masked(G @ C, 1))
+        if calcerr:
+            dC = np.asarray(dC, np.float64)
+            outs.append(masked(np.sqrt(np.einsum("...i,ij,...j->...", A, dC,
+                                                 A))))
+            if calcgrad:
+                outs.append(masked(np.sqrt(
+                    np.einsum("...ci,ij,...cj->...c", G, dC, G)), 1))
+        return outs[0] if len(outs) == 1 else tuple(outs)
+
+    def inverse_transform(self, gdlat, gdlon, gdalt, vec):
+        """Cap-frame vectors (e.g. calcgrad's dP) at geodetic points rotated
+        to ECEF components: Model.inverse_transform."""
+        return self.model.inverse_transform(gdlat, gdlon, gdalt, vec)
 
     def get_C(self, t):
         """Coefficients for a requested time (reference estimate.py:180-221):
-        nearest record within timetol, or linear interpolation between the
-        two bracketing record mid-times when timeinterp=True.  Naive
-        datetimes are UTC; aware ones are converted to UTC."""
+        nearest record within timetol, linear interpolation between the two
+        bracketing record mid-times when timeinterp=True, or the time spline
+        when timeinterp='spline' (covariance from the nearest record: the
+        spline smooths the coefficient trajectory, the per-record error bars
+        stay).  Naive datetimes are UTC; aware ones are converted to UTC."""
         if t.tzinfo is not None:
             t = t.astimezone(dt.timezone.utc).replace(tzinfo=None)
         t0 = (t - dt.datetime(1970, 1, 1)).total_seconds()
         mt = np.mean(self.time, axis=1)
+        if self.timeinterp == "spline":
+            from .ops.timesmooth import eval_time_spline
+
+            C = eval_time_spline(self.timefit, t0)  # raises out of range
+            return C, self.Covariance[np.argmin(np.abs(mt - t0))]
         try:
             if self.timeinterp:
                 i = np.argwhere((t0 >= mt[:-1]) & (t0 < mt[1:])).flatten()[0]

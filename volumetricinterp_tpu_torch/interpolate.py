@@ -7,7 +7,12 @@ float64 on ``device`` (ops/fit.py: masked sufficient statistics, the
 regularization search, the cutoff solve), copied to the host and, when an
 output file is configured, flushed to it (io.coeffs.IncrementalCoeffWriter)
 so an interrupted run leaves a valid checkpoint; ``saveh5`` then finalizes
-the file in place.
+the file in place.  Options of the JAX package's fit, in the same places:
+REGULARIZATION_PROFILE (a Chapman-profile tau pull, ``_reg_taus``),
+TIME_COUPLING (a joint re-solve of the day, ops/timejoint.py) and
+TIME_SMOOTHING (a time spline of the coefficients, ops/timesmooth.py,
+stored under /TimeFit); ``calc_coeffs_multiparam`` fits several parameters
+in one record stream.
 
 Attribute parity: configfile, regularization_list, reg_method, filename,
 outputfilename, param, errlim, chi2lim, goodfitcode, model_name, model,
@@ -16,18 +21,21 @@ hull_vert, time, Coeffs, Covariance, chi_sq, reg_params.
 
 from __future__ import annotations
 
+import contextlib
 import datetime as dt
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from .config import Config
+from .constants import RE
 from . import models
 from .io.amisr import read_datafile
 from .io.coeffs import (IncrementalCoeffWriter, finalize_checkpoint,
                         save_coeff_file)
-from .ops.fit import fit_records, reg_mats_eig
+from .ops.fit import fit_records, prepare_chunk, reg_mats_eig
 from .ops import regparam as regparam_mod
 from .utils.device import check_device
 from .utils.hull import compute_hull_vertices
@@ -104,25 +112,48 @@ class Interpolate:
         self._reg_matrices_cache = reg_matricies
         return reg_matricies
 
-    def _check_supported(self):
-        f = self.config.fit
-        for key, val, item in (
-                ("REGULARIZATION_PROFILE", f.regularization_profile,
-                 "multiparam and profile taus"),
-                ("TIME_COUPLING", f.time_coupling, "timejoint and timesmooth"),
-                ("TIME_SMOOTHING", f.time_smoothing,
-                 "timejoint and timesmooth")):
-            if val:
-                raise NotImplementedError(
-                    f"{key} is not ported to the PyTorch package yet "
-                    f"(ROADMAP queue 1: {item})")
+    def _reg_taus(self, names, nb):
+        """Tau vectors [nreg, nb] of [DEFAULT] REGULARIZATION_PROFILE, or
+        None (volumetricinterp_tpu/interpolate.py:197-237).
 
-    def calc_coeffs(self, starttime=None, endtime=None, resume=False):
-        """Fit every record in the file (optionally a time window), batched
-        in record chunks (reference flow, interpolate.py:472-579).  With
-        resume=True and an existing partial output file, completed chunks
-        are skipped."""
-        self._check_supported()
+        "chapman,<nmax>,<hmax_km>,<scale_km>" is the Chapman-layer density
+        n(z) = nmax exp(0.5 (1 - y - e^-y)), y = (z - z0)/H in the model's
+        scaled altitude z = 100 alt/RE; every '0thorder'-regularized
+        parameter is pulled toward it (penalty alpha (C'Psi C - 2 tau'C),
+        tau from Model.eval_tau).  Rows of other regularization types are
+        zero."""
+        spec = self.config.fit.regularization_profile.strip()
+        if not spec or not names:
+            return None
+        kind, *params = [p.strip() for p in spec.split(",")]
+        if kind.lower() != "chapman":
+            raise ValueError(
+                f"unknown REGULARIZATION_PROFILE kind {kind!r} "
+                "(supported: chapman,<nmax>,<hmax_km>,<scale_km>)")
+        nmax, hmax_km, scale_km = (float(p) for p in params)
+        z0 = 100.0 * hmax_km * 1000.0 / RE
+        hz = 100.0 * scale_km * 1000.0 / RE
+
+        def profile(z):
+            y = (np.asarray(z) - z0) / hz
+            return nmax * np.exp(0.5 * (1.0 - y - np.exp(-y)))
+
+        if "0thorder" not in names:
+            logger.warning(
+                "REGULARIZATION_PROFILE is set but '0thorder' is not in "
+                "REGULARIZATION_LIST; the profile pull only applies to "
+                "0thorder regularization and will be ignored.")
+            return None
+        tau_vec = np.asarray(self.model.eval_tau(profile)).reshape(-1)
+        taus = np.zeros((len(names), nb))
+        for i, r in enumerate(names):
+            if r == "0thorder":
+                taus[i] = tau_vec
+        return taus
+
+    def _fit_setup(self):
+        """The regularization matrices [nreg, nb, nb], their tau vectors
+        (or None), the method and the manual alphas of a fit."""
         with self.timer.phase("reg_matrices"):
             logger.info(
                 "Evaluating Regularization matricies.  This may take a few minutes."
@@ -132,6 +163,29 @@ class Interpolate:
             nb = self.model.nbasis
             reg_mats = (np.stack([reg_mats_dict[r] for r in names]) if names
                         else np.zeros((0, nb, nb)))
+            reg_taus = self._reg_taus(names, nb)
+        return (reg_mats, reg_taus) + self._resolve_method(names)
+
+    @staticmethod
+    def _window(starttime, endtime, utime, *per_record):
+        """The records inside [starttime, endtime] (both given), else all:
+        (utime, *per_record) sliced."""
+        if not (starttime and endtime):
+            return (utime,) + per_record
+        epoch = dt.datetime(1970, 1, 1)  # naive UTC
+        idx = np.argwhere(
+            (utime[:, 0] >= (starttime - epoch).total_seconds())
+            & (utime[:, 1] <= (endtime - epoch).total_seconds())
+        ).flatten()
+        return (utime[idx, :],) + tuple(a[idx] for a in per_record)
+
+    def calc_coeffs(self, starttime=None, endtime=None, resume=False):
+        """Fit every record in the file (optionally a time window), batched
+        in record chunks (reference flow, interpolate.py:472-579).  With
+        resume=True and an existing partial output file, completed chunks
+        are skipped."""
+        reg_mats, reg_taus, method, manual_params = self._fit_setup()
+        names = self.regularization_list
 
         with self.timer.phase("read_datafile"):
             utime, lat, lon, alt, value, error = self.read_datafile(self.filename)
@@ -139,18 +193,9 @@ class Interpolate:
         with self.timer.phase("compute_hull"):
             self.compute_hull(lat, lon, alt)
 
-        if starttime and endtime:
-            epoch = dt.datetime(1970, 1, 1)  # naive UTC
-            idx = np.argwhere(
-                (utime[:, 0] >= (starttime - epoch).total_seconds())
-                & (utime[:, 1] <= (endtime - epoch).total_seconds())
-            ).flatten()
-            utime = utime[idx, :]
-            value = value[idx]
-            error = error[idx]
-
+        utime, value, error = self._window(starttime, endtime, utime, value,
+                                           error)
         nrec = value.shape[0]
-        method, manual_params = self._resolve_method(names)
 
         with self.timer.phase("design_matrix"):
             # basis() widens the Legendre tables to the data's colatitudes
@@ -169,8 +214,8 @@ class Interpolate:
                     logger.info("resuming at record %d / %d", start0, nrec)
         try:
             C_all, dC_all, c2_all, rp_all = self._run_fit_pipeline(
-                value, error, A, reg_mats, method, manual_params, utime,
-                writer=writer, start0=start0)
+                value, error, A, reg_mats, reg_taus, method, manual_params,
+                utime, writer=writer, start0=start0)
         finally:
             if writer is not None:
                 writer.close()
@@ -182,6 +227,43 @@ class Interpolate:
         self.Covariance = dC_all
         self.chi_sq = c2_all
         self.reg_params = rp_all
+
+        if self.config.fit.time_coupling:
+            # the day re-solved jointly at the searched alphas
+            # (ops/timejoint.py): Coeffs and chi_sq change; the covariance
+            # keeps the independent fits' error bars
+            with self.timer.phase("time_coupled_solve"):
+                from .ops.timejoint import fit_time_coupled
+
+                with np.errstate(divide="ignore"):
+                    la = np.log10(np.where(rp_all > 0, rp_all, 0.0))
+                C_j, c2_j = fit_time_coupled(
+                    value, error, A, reg_mats, la,
+                    self.config.fit.time_coupling, device=self.device)
+                n_filled = int((np.isnan(c2_all) & np.isfinite(c2_j)).sum())
+                self.Coeffs = C_j
+                self.chi_sq = c2_j
+                logger.info(
+                    "time-coupled solve: beta_rel=%.3g, %d failed records "
+                    "carried by neighbors", self.config.fit.time_coupling,
+                    n_filled)
+                # the flushed file holds the independent coefficients:
+                # saveh5 rewrites it with the joint ones
+                self._flushed_output = None
+
+        self.timefit = None
+        if self.config.fit.time_smoothing:
+            with self.timer.phase("time_spline"):
+                from .ops.timesmooth import fit_time_spline
+
+                lam = self.config.fit.time_smoothing
+                if lam != "gcv":
+                    lam = float(lam)
+                self.timefit = fit_time_spline(
+                    np.mean(utime, axis=1), C_all, lam=lam,
+                    nseg=self.config.fit.time_knots or None)
+                logger.info("time spline: lam=%.3g, K=%d",
+                            self.timefit["lam"], self.timefit["S"].shape[0])
 
         nvalid = np.isfinite(value).sum(axis=1)
         fit_quality_report(c2_all, nvalid, rp_all, names)
@@ -201,10 +283,16 @@ class Interpolate:
             method = "manual"
         return method, manual_params
 
-    def _run_fit_pipeline(self, value, error, A_np, reg_mats, method,
-                          manual_params, utime, writer=None, start0=0):
+    def _run_fit_pipeline(self, value, error, A_np, reg_mats, reg_taus,
+                          method, manual_params, utime, writer=None,
+                          start0=0):
         """Fit record chunks of ``chunk_size`` (default min(nrec, 128))
-        records in turn; returns host (C_all, dC_all, c2_all, rp_all)."""
+        records in turn; returns host (C_all, dC_all, c2_all, rp_all).
+
+        Each chunk's first step (ops/fit.prepare_chunk: statistics, and
+        AtWA's eigendecomposition on the host) runs one chunk ahead on a
+        worker thread and, on the card, a side stream: the host LAPACK
+        work overlaps the card's search of the chunk before."""
         names = self.regularization_list
         nrec = value.shape[0]
         nb = self.model.nbasis
@@ -230,18 +318,101 @@ class Interpolate:
             # R's eigenbases (the exact searches' alpha = 1 side) once a run
             reg_eig = (reg_mats_eig(R_d) if len(names) and mode == "exact"
                        and method in ("chi2", "gcv") else None)
-            for s in range(start0, nrec, chunk):
-                e = min(s + chunk, nrec)
-                res = fit_records(
-                    value[s:e], error[s:e], A_d, R_d, method=method,
-                    manual_params=manual_params, regparam_mode=mode,
-                    device=self.device, reg_eig=reg_eig)
-                C_all[s:e], dC_all[s:e], c2_all[s:e], rp_all[s:e] = (
-                    t.cpu().numpy() for t in res)
-                if writer is not None:
-                    writer.write_chunk(s, utime[s:e], C_all[s:e], dC_all[s:e],
-                                       c2_all[s:e], rp_all[s:e])
+            cuda = self.device.type == "cuda"
+            side = torch.cuda.Stream(self.device) if cuda else None
+            if cuda:
+                side.wait_stream(torch.cuda.current_stream(self.device))
+
+            def stage(s, e):
+                with (torch.cuda.stream(side) if cuda
+                      else contextlib.nullcontext()):
+                    p = prepare_chunk(value[s:e], error[s:e], A_d, method,
+                                      mode, len(names), self.device)
+                    if cuda:
+                        p["event"] = side.record_event()
+                return p
+
+            starts = list(range(start0, nrec, chunk))
+            with ThreadPoolExecutor(1) as pool:
+                ahead = (pool.submit(stage, starts[0], min(starts[0] + chunk,
+                                                           nrec))
+                         if starts else None)
+                for i, s in enumerate(starts):
+                    e = min(s + chunk, nrec)
+                    prepared = ahead.result()
+                    if i + 1 < len(starts):
+                        s2 = starts[i + 1]
+                        ahead = pool.submit(stage, s2, min(s2 + chunk, nrec))
+                    if cuda:
+                        main = torch.cuda.current_stream(self.device)
+                        main.wait_event(prepared.pop("event"))
+                        for t in _tensors(prepared):
+                            t.record_stream(main)
+                    res = fit_records(
+                        value[s:e], error[s:e], A_d, R_d, method=method,
+                        manual_params=manual_params, regparam_mode=mode,
+                        device=self.device, reg_eig=reg_eig,
+                        reg_taus=reg_taus, prepared=prepared)
+                    C_all[s:e], dC_all[s:e], c2_all[s:e], rp_all[s:e] = (
+                        t.cpu().numpy() for t in res)
+                    if writer is not None:
+                        writer.write_chunk(s, utime[s:e], C_all[s:e],
+                                           dC_all[s:e], c2_all[s:e],
+                                           rp_all[s:e])
         return C_all, dC_all, c2_all, rp_all
+
+    def calc_coeffs_multiparam(self, params, starttime=None, endtime=None):
+        """Fits of several parameters (e.g. ['dens', 'temp_e']) in one
+        record stream (volumetricinterp_tpu/interpolate.py:648-738): one
+        read per parameter, one hull, design matrix and set of
+        regularization matrices, and the k * nrec records through one chunk
+        loop of fit_records.  Writes one coefficient file per parameter
+        (OUTPUTFILENAME with a `.{param}` suffix before the extension) and
+        returns {param: (time, Coeffs, Covariance, chi_sq)}."""
+        base_param, base_out = self.param, self.outputfilename
+        root, ext = os.path.splitext(base_out)
+        try:
+            reg_mats, reg_taus, method, manual_params = self._fit_setup()
+            names = self.regularization_list
+            vals, errs = [], []
+            with self.timer.phase("read_datafile"):
+                for prm in params:
+                    self.param = prm
+                    utime, lat, lon, alt, v, e = self.read_datafile(
+                        self.filename)
+                    vals.append(v)
+                    errs.append(e)
+            with self.timer.phase("compute_hull"):
+                self.compute_hull(lat, lon, alt)
+            k = len(params)
+            utime, *ve = self._window(starttime, endtime, utime, *vals, *errs)
+            vals, errs = ve[:k], ve[k:]
+            nrec = vals[0].shape[0]
+            with self.timer.phase("design_matrix"):
+                A = self.model.basis(lat, lon, alt)
+
+            self._flushed_output = None
+            C, dC, c2, rp = self._run_fit_pipeline(
+                np.concatenate(vals), np.concatenate(errs), A, reg_mats,
+                reg_taus, method, manual_params, np.concatenate([utime] * k))
+
+            results = {}
+            for i, prm in enumerate(params):
+                sl = slice(i * nrec, (i + 1) * nrec)
+                self.param = prm
+                self.outputfilename = f"{root}.{prm}{ext}"
+                self.time = utime
+                self.Coeffs, self.Covariance = C[sl], dC[sl]
+                self.chi_sq, self.reg_params = c2[sl], rp[sl]
+                self.timefit = None
+                self.saveh5()
+                fit_quality_report(c2[sl], np.isfinite(vals[i]).sum(axis=1),
+                                   rp[sl], names)
+                results[prm] = (self.time, self.Coeffs, self.Covariance,
+                                self.chi_sq)
+        finally:
+            self.param, self.outputfilename = base_param, base_out
+        return results
 
     def _make_writer(self, nrec, fresh=False):
         meta = dict(
@@ -269,9 +440,10 @@ class Interpolate:
         the whole file.  Mutating Coeffs/Covariance between calc_coeffs and
         saveh5 voids the in-place path: set self._flushed_output = None
         first to force a full rewrite."""
+        timefit = getattr(self, "timefit", None)
         if getattr(self, "_flushed_output", None) == self.outputfilename \
                 and self.outputfilename:
-            finalize_checkpoint(self.outputfilename)
+            finalize_checkpoint(self.outputfilename, timefit=timefit)
             return
         name = os.path.basename(self.configfile) if self.configfile else ""
         path = (
@@ -292,4 +464,17 @@ class Interpolate:
             path,
             self.config.raw_text,
             reg_params=self.reg_params,
+            timefit=timefit,
         )
+
+
+def _tensors(tree):
+    """Every tensor in a nest of dicts, tuples and lists."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _tensors(v)

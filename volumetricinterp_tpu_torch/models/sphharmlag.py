@@ -26,6 +26,7 @@ import math
 import numpy as np
 
 from ..config import Config
+from ..constants import RE
 from .. import coords, special
 from ..tables import build_legendre_tables, nu_of_l
 from ..quadrature import (
@@ -108,7 +109,10 @@ class Model:
         kvm = np.where(mbar != 0, kvm * np.sqrt(2.0), kvm)
 
         # P_nu^{-mbar} = (-1)^mbar G(nu-mbar+1)/G(nu+mbar+1) P_nu^{+mbar}
-        ratio = np.exp(sp.gammaln(nu - mbar + 1.0) - sp.gammaln(nu + mbar + 1.0))
+        def negm_scale(nu_arr):
+            ratio = np.exp(sp.gammaln(nu_arr - mbar + 1.0)
+                           - sp.gammaln(nu_arr + mbar + 1.0))
+            return np.where(m < 0, ((-1.0) ** mbar) * ratio, 1.0)
 
         self._k = k
         self._l = l
@@ -116,9 +120,12 @@ class Model:
         self._mbar = mbar
         self._nu = nu
         self._kvm = kvm
-        self._negm_scale = np.where(m < 0, ((-1.0) ** mbar) * ratio, 1.0)
-        # shift-0 table column per basis function
-        self._col_0 = 3 * (l * (l + 1) // 2 + mbar) + 1
+        self._negm_scale = negm_scale(nu)  # degree nu
+        self._negm_scale_p1 = negm_scale(nu + 1.0)  # degree nu + 1
+        # table columns per basis function, degree shifts 0 and +1
+        pair = l * (l + 1) // 2 + mbar
+        self._col_0 = 3 * pair + 1
+        self._col_p1 = 3 * pair + 2
         self._is_cos = (m >= 0).astype(np.float64)
 
     def transform_coord(self, gdlat, gdlon, gdalt):
@@ -154,6 +161,11 @@ class Model:
             self.ensure_theta_domain(tmax)
         return z, t, p
 
+    def _trig(self, p):
+        """(cos(m p), sin(m p)) [npts, maxl] for m = 0 .. maxl-1."""
+        mb = np.arange(self.maxl, dtype=np.float64)
+        return np.cos(p[:, None] * mb[None, :]), np.sin(p[:, None] * mb[None, :])
+
     def _design_np(self, z, t, p):
         """Host float64 design matrix [npoints, nbasis] at cap coordinates:
         Chebyshev Clenshaw for the Legendre part, Laguerre recurrence for
@@ -168,9 +180,7 @@ class Model:
         lag = special.np_laguerre_all(self.maxk - 1, z)
         radial = np.exp(-0.5 * z)[:, None] * lag
 
-        mb = np.arange(self.maxl, dtype=np.float64)
-        cosm = np.cos(p[:, None] * mb[None, :])
-        sinm = np.sin(p[:, None] * mb[None, :])
+        cosm, sinm = self._trig(p)
         trig = (
             cosm[:, self._mbar] * self._is_cos[None, :]
             + sinm[:, self._mbar] * (1.0 - self._is_cos)[None, :]
@@ -184,10 +194,73 @@ class Model:
         z, t, p = self._coords_for(gdlat, gdlon, gdalt)
         return self._design_np(z, t, p).reshape(shape + (self.nbasis,))
 
+    def _grad_np(self, z, t, p):
+        """Host float64 gradient of every basis function at cap
+        coordinates, [npts, 3, nbasis] in (z-hat, theta-hat, phi-hat):
+        d/dz of e^{-z/2} L_k through L^1_{k-1} (scaled by 100/RE to d/dr),
+        d/dtheta of P_nu^m through P_{nu+1}^m, d/dphi of the azimuth, the
+        angular ones over r sin(theta) (volumetricinterp_tpu/models/
+        sphharmlag.py:312-362)."""
+        from ..tables import np_cheb_clenshaw
+
+        x, y, e = np.cos(t), np.sin(t), np.exp(-0.5 * z)
+        tbl = self.tables
+        P = np_cheb_clenshaw(2.0 * t / tbl.theta_max - 1.0, tbl.coef_np)
+        Pmv = P[:, self._col_0] * self._negm_scale[None, :]
+        Pmv1 = P[:, self._col_p1] * self._negm_scale_p1[None, :]
+
+        L0 = special.np_laguerre_all(self.maxk - 1, z)[:, self._k]
+        # L^1_{k-1}, indexed by k (L^1_{-1} = 0)
+        lag1 = special.np_laguerre_all(max(self.maxk - 2, 0), z, alpha=1.0)
+        L1 = np.concatenate([np.zeros_like(z)[:, None], lag1],
+                            axis=-1)[:, self._k]
+
+        cosm, sinm = self._trig(p)
+        cos_b, sin_b = cosm[:, self._mbar], sinm[:, self._mbar]
+        trig = cos_b * self._is_cos + sin_b * (1.0 - self._is_cos)
+        dtrig = (-self._m.astype(np.float64) * sin_b * self._is_cos
+                 + self._mbar.astype(np.float64) * cos_b
+                 * (1.0 - self._is_cos))
+        A_az = self._kvm * trig
+        dA_az = self._kvm * dtrig
+
+        v = self._nu[None, :]
+        msgn = self._m.astype(np.float64)[None, :]
+        denom = (y * (z / 100.0 + 1.0) * RE)[:, None]
+        zhat = -0.5 * e[:, None] * (L0 + 2.0 * L1) * Pmv * A_az * 100.0 / RE
+        that = (e[:, None] * L0
+                * (-(v + 1.0) * x[:, None] * Pmv + (v - msgn + 1.0) * Pmv1)
+                * A_az / denom)
+        phat = e[:, None] * L0 * Pmv * dA_az / denom
+        return np.stack([zhat, that, phat], axis=-2)
+
     def grad_basis(self, gdlat, gdlon, gdalt):
-        raise NotImplementedError(
-            "basis gradients are not ported to the PyTorch package yet "
-            "(ROADMAP queue 1: gradients and inverse_transform)")
+        """Gradient of each basis function (reference sphharmlag.py:148-184)
+        at geodetic points, host float64: [..., 3, nbasis] in cap
+        components (z-hat, theta-hat, phi-hat)."""
+        shape = np.shape(gdlat)
+        z, t, p = self._coords_for(gdlat, gdlon, gdalt)
+        return self._grad_np(z, t, p).reshape(shape + (3, self.nbasis))
+
+    def inverse_transform(self, gdlat, gdlon, gdalt, vec):
+        """Vectors in cap-frame spherical components (r-hat, theta-hat,
+        phi-hat; ``vec`` [..., 3], e.g. grad_basis contractions) at geodetic
+        points, rotated back to ECEF (x, y, z), host float64.  The
+        reference's own inverse_transform (sphharmlag.py:363-395) is stale;
+        this is the JAX package's working version (:450-480)."""
+        shape = np.shape(gdlat)
+        _, t, p = self._coords_for(gdlat, gdlon, gdalt)
+        vec = np.asarray(vec, dtype=np.float64).reshape((-1, 3))
+        st, ct, sp_, cp_ = np.sin(t), np.cos(t), np.sin(p), np.cos(p)
+        rhat = np.stack([st * cp_, st * sp_, ct], axis=-1)
+        that = np.stack([ct * cp_, ct * sp_, -st], axis=-1)
+        phat = np.stack([-sp_, cp_, np.zeros_like(sp_)], axis=-1)
+        v = vec[:, 0:1] * rhat + vec[:, 1:2] * that + vec[:, 2:3] * phat
+        # undo the +theta0 rotation (docs/PARITY_NOTES.md #1)
+        k, theta0 = coords.cap_rotation_axis_angle(self.latcp, self.loncp)
+        vx, vy, vz = coords.rodrigues_rotate(k, -theta0, v[:, 0], v[:, 1],
+                                             v[:, 2])
+        return np.stack([vx, vy, vz], axis=-1).reshape(shape + (3,))
 
     # ------------------------------------------------------------------
     # regularization matrices (separable 1-D integral tables)
@@ -382,3 +455,57 @@ class Model:
         it = self._it_table("psi")
         ip = self._ip_table()
         return self._assemble(iz, it * ip)
+
+    def eval_tau(self, reg_func):
+        """Tau vector [nbasis, 1] of data-informed 0th-order regularization
+        toward the profile ``reg_func(z)`` (reference sphharmlag.py:241-259;
+        volumetricinterp_tpu/models/sphharmlag.py:683-744): 'quad' mode
+        takes the reference's adaptive scipy.integrate.quad per integral;
+        'gauss' mode the same separable integrals on fixed Gauss-Laguerre /
+        Gauss-Legendre nodes, with the azimuth integral in closed form (2 pi
+        for m = 0, exactly 0 otherwise)."""
+        import scipy.integrate
+        import scipy.special as sp
+
+        if self._quad_mode == "quad":
+            tau = np.zeros((self.nbasis, 1))
+            for n in range(self.nbasis):
+                k, m = int(self._k[n]), int(self._m[n])
+                v = float(self._nu[n])
+                z_int = lambda zz: (np.exp(-0.5 * zz) * sp.eval_laguerre(k, zz)
+                                    * reg_func(zz) * zz**2)
+                t_int = lambda tt: sp.lpmv(m, v, np.cos(tt)) * np.sin(tt)
+                p_int = lambda pp: self._az_host(v, m, pp)
+                tau[n] = (scipy.integrate.quad(z_int, 0.0, self.max_z_int)[0]
+                          * scipy.integrate.quad(t_int, 0.0, self.cap_lim)[0]
+                          * scipy.integrate.quad(p_int, 0.0, 2.0 * np.pi)[0])
+            return tau
+
+        # gauss mode: z on Gauss-Laguerre (e^{-z} folded in, the integrand
+        # carries the residual e^{+z/2}) or mapped Legendre for a finite
+        # MAX_Z_INT; theta on Gauss-Legendre over [0, cap_lim]
+        K = self.maxk
+        if math.isinf(self.max_z_int):
+            zq, wz = gauss_laguerre(8 * K + 48)
+        else:
+            xq, wl = np.polynomial.legendre.leggauss(8 * K + 32)
+            zq = 0.5 * self.max_z_int * (xq + 1.0)
+            wz = 0.5 * self.max_z_int * wl * np.exp(-zq)
+        fz = np.exp(0.5 * zq) * reg_func(zq) * zq**2
+        lagv = np.stack(
+            [np.polynomial.laguerre.lagval(zq, np.eye(K)[k]) for k in range(K)])
+        iz = lagv @ (wz * fz)  # [K]
+
+        tq, wt = np.polynomial.legendre.leggauss(96)
+        tq = 0.5 * self.cap_lim * (tq + 1.0)
+        wt = 0.5 * self.cap_lim * wt
+        tau = np.zeros((self.nbasis, 1))
+        for n in range(self.nbasis):
+            k, m = int(self._k[n]), int(self._m[n])
+            if m != 0:
+                continue  # the azimuth integral vanishes exactly
+            v = float(self._nu[n])
+            it = float(np.sum(wt * sp.lpmv(m, v, np.cos(tq)) * np.sin(tq)))
+            # az(nu, 0, .) is constant: its integral is 2 pi az(nu, 0, 0)
+            tau[n] = iz[k] * it * 2.0 * np.pi * float(self._az_host(v, 0, 0.0))
+        return tau

@@ -16,6 +16,11 @@ The dispatch of the JAX package's fit_from_stats_x / fit_one_record_x
 * chi2 'exact_grid' and 'fast', gcv (both modes), manual: a search per
   matrix, then the cutoff solve.
 
+reg_taus (optional, one tau vector a matrix): data-informed regularization
+toward a target profile, in every chi2 mode's search and final solve and in
+manual fits; GCV searches and solves without it, as the JAX package does
+(volumetricinterp_tpu/ops/fit.py:168-229).
+
 Records whose parameter search fails are NaN-filled (interpolate.py:
 557-563).  The design matrix A is shared across records (the beam geometry
 is file-level in AMISR data) and is built once on the host by the model.
@@ -27,8 +32,8 @@ import numpy as np
 import torch
 
 from . import regparam
-from .solve import (final_solve, final_solve_anchor, masked_points,
-                    normalized_eigh, suff_stats)
+from .solve import (final_solve, final_solve_anchor, host_eigh,
+                    masked_points, normalized_eigh, suff_stats)
 
 METHODS = ("chi2", "gcv", "manual")
 REGPARAM_MODES = ("exact", "exact_grid", "fast")
@@ -47,16 +52,47 @@ def reg_mats_eig(reg_mats):
     return V, s
 
 
+def atwa_eig(AtWA):
+    """AtWA's normalized eigendecomposition (w, V, s) for the 'exact'
+    searches, in LAPACK float64 on the host CPU (solve.host_eigh), on the
+    card as on the CPU: it decides the chi2 search's floor, and the whole
+    search and the final solve inherit its basis (PERF.md)."""
+    return normalized_eigh(AtWA, host_eigh)
+
+
+def takes_atwa_eig(method, regparam_mode, nreg):
+    """Whether fit_records' search takes ``atwa_eig`` (the 'exact' chi2 and
+    every GCV search but 'fast')."""
+    return (nreg > 0 and method != "manual" and regparam_mode != "fast"
+            and not (regparam_mode == "exact_grid" and method == "chi2"))
+
+
+def prepare_chunk(values, errors, A, method, regparam_mode, nreg, device):
+    """The first step of fit_records on a record chunk: values and errors
+    on ``device`` in float64, their sufficient statistics and, where the
+    search takes it, AtWA's eigendecomposition on the host.  Interpolate
+    runs it a chunk ahead, on a side stream, so that the host
+    eigendecomposition overlaps the card's search of the chunk before."""
+    values, errors = (torch.as_tensor(x, dtype=torch.float64, device=device)
+                      for x in (values, errors))
+    stats = suff_stats(A, values, errors)
+    eigA = (atwa_eig(stats[0]) if takes_atwa_eig(method, regparam_mode, nreg)
+            else None)
+    return {"values": values, "errors": errors, "stats": stats, "eigA": eigA}
+
+
 def fit_records(values, errors, A, reg_mats, method: str = "chi2",
                 manual_params=None, regparam_mode: str = "exact",
-                device="cuda", reg_eig=None):
+                device="cuda", reg_eig=None, reg_taus=None, prepared=None):
     """Batched fit of a record block.
 
     values/errors: [nrec, npoints] (NaN value = no data); A: [npoints,
     nbasis]; reg_mats: [nreg, nbasis, nbasis]; manual_params: raw alphas
     [nreg] (reference convention) for method 'manual'.  Arrays or tensors;
     everything is moved to ``device`` in float64.  reg_eig: ``reg_mats_eig``
-    of reg_mats, computed here when not given.
+    of reg_mats, computed here when not given.  reg_taus: [nreg, nbasis]
+    tau vectors or None.  prepared: ``prepare_chunk`` of these records
+    (values and errors are then not read), computed here when not given.
 
     Returns tensors on ``device``: C [nrec, nb], dC [nrec, nb, nb],
     chi2 [nrec], reg_params [nrec, nreg] in the reference's RAW alpha
@@ -67,12 +103,22 @@ def fit_records(values, errors, A, reg_mats, method: str = "chi2",
     if regparam_mode not in REGPARAM_MODES:
         raise ValueError(f"unknown REGPARAM_MODE {regparam_mode!r}")
     device = torch.device(device)
-    values, errors, A, reg_mats = (
-        torch.as_tensor(x, dtype=torch.float64, device=device)
-        for x in (values, errors, A, reg_mats))
-    nrec, nreg = values.shape[0], reg_mats.shape[0]
+    A, reg_mats = (torch.as_tensor(x, dtype=torch.float64, device=device)
+                   for x in (A, reg_mats))
+    nreg = reg_mats.shape[0]
+    if prepared is None:
+        prepared = prepare_chunk(values, errors, A, method, regparam_mode,
+                                 nreg, device)
+    values, errors = prepared["values"], prepared["errors"]
+    nrec = values.shape[0]
+    if method == "gcv":
+        reg_taus = None
+    if reg_taus is not None:
+        reg_taus = torch.as_tensor(reg_taus, dtype=torch.float64,
+                                   device=device)
+    taus = [None] * nreg if reg_taus is None else list(reg_taus)
 
-    AtWA, AtWb, btWb, N = suff_stats(A, values, errors)
+    AtWA, AtWb, btWb, N = prepared["stats"]
     anchored = None
     if nreg == 0:
         log_alphas = torch.zeros((nrec, 0), dtype=torch.float64, device=device)
@@ -82,22 +128,24 @@ def fit_records(values, errors, A, reg_mats, method: str = "chi2",
         log_alphas = torch.as_tensor(la, device=device).expand(nrec, nreg)
     elif regparam_mode == "exact_grid" and method == "chi2":
         log_alphas = torch.stack(
-            [regparam.chi2_reg_param_grid(AtWA, AtWb, btWb, N, reg_mats[i])
+            [regparam.chi2_reg_param_grid(AtWA, AtWb, btWb, N, reg_mats[i],
+                                          taus[i])
              for i in range(nreg)], dim=-1)
     elif regparam_mode == "fast":
         # AtWA's raw-scale eigendecomposition, shared by every whitening
         w, V, s = normalized_eigh(AtWA)
         eig_raw = (w * s[:, None], V)
         if method == "chi2":
-            searches = [regparam.chi2_reg_param_fast(AtWb, btWb, N, R, eig_raw)
-                        for R in reg_mats]
+            searches = [regparam.chi2_reg_param_fast(AtWb, btWb, N, R, eig_raw,
+                                                     tau)
+                        for R, tau in zip(reg_mats, taus)]
         else:
             b, W, mask = masked_points(values, errors)
             searches = [regparam.gcv_reg_param_fast(
                 AtWb, R, A, b, W, mask, eig_raw) for R in reg_mats]
         log_alphas = torch.stack(searches, dim=-1)
     else:
-        eigA = normalized_eigh(AtWA)
+        eigA = prepared["eigA"]
         VR, sR = reg_mats_eig(reg_mats) if reg_eig is None else reg_eig
         if method == "gcv":
             b, W, mask = masked_points(values, errors)
@@ -107,12 +155,13 @@ def fit_records(values, errors, A, reg_mats, method: str = "chi2",
         elif nreg == 1:
             root, anchor, chi2_fb = regparam.chi2_reg_param(
                 AtWA, AtWb, btWb, N, reg_mats[0], eigA, (VR[0], sR[0]),
-                want_anchor=True)
+                want_anchor=True, tau=taus[0])
             searches = [root]
             anchored = (anchor, chi2_fb)
         else:
             searches = [regparam.chi2_reg_param(
-                AtWA, AtWb, btWb, N, reg_mats[i], eigA, (VR[i], sR[i]))
+                AtWA, AtWb, btWb, N, reg_mats[i], eigA, (VR[i], sR[i]),
+                tau=taus[i])
                 for i in range(nreg)]
         log_alphas = torch.stack(searches, dim=-1)
 
@@ -126,7 +175,8 @@ def fit_records(values, errors, A, reg_mats, method: str = "chi2",
         negative_chi2_reports += int((neg & ~bad).sum())
         chi2 = torch.where(neg, chi2_fb, chi2)
     else:
-        C, dC, chi2 = final_solve(AtWA, AtWb, btWb, reg_mats, log_alphas)
+        C, dC, chi2 = final_solve(AtWA, AtWb, btWb, reg_mats, log_alphas,
+                                  reg_taus)
 
     # NaN-fill failed records (interpolate.py:557-563)
     C = torch.where(bad[:, None], float("nan"), C)

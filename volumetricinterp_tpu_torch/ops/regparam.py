@@ -20,6 +20,11 @@ every per-record ``jnp.where`` a ``torch.where`` on the batch and every
   ('fast', ``gcv_reg_param_fast``).
 * manual: the reference's hardcoded constants (interpolate.py:353-381).
 
+The chi2 searches take an optional TAU vector (data-informed
+regularization, a pull toward a target profile; ops/solve.py): the rhs
+becomes AtWb + alpha tau and chi^2 stays the data chi^2.  GCV searches
+without one, as in the JAX package (ops/fit.py:180-220).
+
 Searches return LOG10(alpha): -inf encodes the too-smooth alpha = 0 early
 exit (interpolate.py:189-191) and NaN the no-bracket failure
 (interpolate.py:142-147, 557-563).  Nothing between a record batch's first
@@ -80,15 +85,17 @@ def _full(like, value):
 # chi2, 'exact_grid' and 'fast': the 101-point bracket grid
 # ---------------------------------------------------------------------------
 
-def _chi2_at(log_alpha, AtWA, AtWb, btWb, R, rec):
-    """chi^2(10**log_alpha[i]) of record rec[i] with X = AtWA + alpha R,
-    in batches of EIGH_BATCH matrices."""
+def _chi2_at(log_alpha, AtWA, AtWb, btWb, R, rec, tau=None):
+    """chi^2(10**log_alpha[i]) of record rec[i] with X = AtWA + alpha R
+    (and the rhs AtWb + alpha tau), in batches of EIGH_BATCH matrices."""
     out = torch.empty_like(log_alpha)
     for s in range(0, log_alpha.shape[0], EIGH_BATCH):
         sl = slice(s, s + EIGH_BATCH)
         r = rec[sl]
         a = alpha_of_log(log_alpha[sl])
-        out[sl] = cutoff_chi2_x(AtWA[r], AtWb[r], btWb[r], a[:, None, None] * R)
+        atau = None if tau is None else a[:, None] * tau
+        out[sl] = cutoff_chi2_x(AtWA[r], AtWb[r], btWb[r],
+                                a[:, None, None] * R, atau)
     return out
 
 
@@ -119,10 +126,11 @@ def _outcome(root, is_smooth, any_event):
     return torch.where(any_event, root, torch.full_like(root, float("nan")))
 
 
-def chi2_reg_param_grid(AtWA, AtWb, btWb, N, R):
+def chi2_reg_param_grid(AtWA, AtWb, btWb, N, R, tau=None):
     """chi2 = nu regularization parameter by the full exact grid scan.
 
-    AtWA [nrec, nb, nb], AtWb [nrec, nb], btWb [nrec], N [nrec]; R [nb, nb].
+    AtWA [nrec, nb, nb], AtWb [nrec, nb], btWb [nrec], N [nrec]; R [nb, nb];
+    tau [nb] or None.
     Returns log10(alpha) [nrec]: -inf for too-smooth, NaN for no bracket.
     Bisection runs only on the records that return a root (one host read
     of that set)."""
@@ -131,7 +139,8 @@ def chi2_reg_param_grid(AtWA, AtWb, btWb, N, R):
     alphas = -torch.arange(N_GRID, dtype=dt, device=dev)
     rec = torch.arange(nrec, device=dev)
     chi2_grid = _chi2_at(alphas.repeat(nrec), AtWA, AtWb, btWb, R,
-                         rec.repeat_interleave(N_GRID)).reshape(nrec, N_GRID)
+                         rec.repeat_interleave(N_GRID),
+                         tau).reshape(nrec, N_GRID)
     nu, is_smooth, any_event, lo, hi = _grid_bracket(chi2_grid, N)
 
     # bisection only where a root is returned
@@ -139,7 +148,7 @@ def chi2_reg_param_grid(AtWA, AtWb, btWb, N, R):
     lo_a, hi_a, nu_a = lo[act], hi[act], nu[act]
     for _ in range(N_BISECT):
         mid = 0.5 * (lo_a + hi_a)
-        below = _chi2_at(mid, AtWA, AtWb, btWb, R, act) - nu_a < 0.0
+        below = _chi2_at(mid, AtWA, AtWb, btWb, R, act, tau) - nu_a < 0.0
         lo_a = torch.where(below, mid, lo_a)
         hi_a = torch.where(below, hi_a, mid)
     root = torch.full((nrec,), float("nan"), dtype=dt, device=dev)
@@ -147,22 +156,32 @@ def chi2_reg_param_grid(AtWA, AtWb, btWb, N, R):
     return _outcome(root, is_smooth, any_event)
 
 
-def chi2_reg_param_fast(AtWb, btWb, N, R, eig_AtWA):
+def _whiten(R, eig_AtWA, AtWb, tau):
+    """(lam, u, utau) of the whitened pencil: u = Q'B^-1 AtWb, utau =
+    Q'B^-1 tau (None without a tau)."""
+    lam, Q, Binv = whiten_pencil(R, eig_AtWA)
+    Qt = Q.transpose(-1, -2)
+    u = _mv(Qt, _mv(Binv, AtWb))
+    utau = None if tau is None else _mv(Qt, _mv(Binv, tau))
+    return lam, u, utau
+
+
+def chi2_reg_param_fast(AtWb, btWb, N, R, eig_AtWA, tau=None):
     """'fast' chi2 search (regparam.py:586-653): one pencil whitening a
     record, then the 101-point grid and 9 rounds of 31-point k-section on
     the O(nbasis) whitened objective.  ``eig_AtWA``: (w, V) of AtWA on the
-    raw scale, shared across regularization matrices.  Returns LOG10(alpha)
-    [B]; -inf for too-smooth, NaN for no bracket."""
-    lam, Q, Binv = whiten_pencil(R, eig_AtWA)
-    u = _mv(Q.transpose(-1, -2), _mv(Binv, AtWb))
+    raw scale, shared across regularization matrices; tau [nb] or None.
+    Returns LOG10(alpha) [B]; -inf for too-smooth, NaN for no bracket."""
+    lam, u, utau = _whiten(R, eig_AtWA, AtWb, tau)
     dev, dt = AtWb.device, AtWb.dtype
     alphas = -torch.arange(N_GRID, dtype=dt, device=dev)
-    chi2_grid = whitened_chi2(alphas.expand(AtWb.shape[0], -1), lam, u, btWb)
+    chi2_grid = whitened_chi2(alphas.expand(AtWb.shape[0], -1), lam, u, btWb,
+                              utau)
     nu, is_smooth, any_event, lo, hi = _grid_bracket(chi2_grid, N)
     frac = torch.arange(1.0, FAST_K + 1.0, dtype=dt, device=dev) / (FAST_K + 1.0)
     for _ in range(FAST_ROUNDS):
         pts = hi[:, None] + (lo - hi)[:, None] * frac
-        below = whitened_chi2(pts, lam, u, btWb) - nu[:, None] < 0.0
+        below = whitened_chi2(pts, lam, u, btWb, utau) - nu[:, None] < 0.0
         any_below = below.any(-1)
         i0 = below.to(torch.uint8).argmax(-1, keepdim=True)
         prev = pts.gather(-1, (i0 - 1).clamp(min=0))[:, 0]
@@ -177,7 +196,8 @@ def chi2_reg_param_fast(AtWb, btWb, N, R, eig_AtWA):
 # chi2, 'exact': the defect-corrected search (regparam.py:163-516)
 # ---------------------------------------------------------------------------
 
-def whitened_root_offset(lam, u, btWb, nu, d, r0=None, slope=None):
+def whitened_root_offset(lam, u, btWb, nu, d, r0=None, slope=None,
+                         utau=None):
     """First crossing on [1e-100, 1] of the whitened objective plus a local
     linear model of the cutoff defect,
         chi2_fast(alpha) + d + slope clip(log alpha - r0, +-RANGE) = nu,
@@ -187,7 +207,8 @@ def whitened_root_offset(lam, u, btWb, nu, d, r0=None, slope=None):
 
     def f_of(a_log):
         extra = a_log.dim() - 1
-        f = whitened_chi2(a_log, lam, u, btWb) + _ex(d, extra) - _ex(nu, extra)
+        f = (whitened_chi2(a_log, lam, u, btWb, utau) + _ex(d, extra)
+             - _ex(nu, extra))
         if slope is not None:
             f = f + _ex(slope, extra) * torch.clamp(
                 a_log - _ex(r0, extra), -DEFECT_MODEL_RANGE, DEFECT_MODEL_RANGE)
@@ -234,7 +255,7 @@ def _root_of(state):
     return torch.where(hi - lo < 0.2, _clip(r_last, lo, hi), 0.5 * (lo + hi))
 
 
-def _defect_round(state, anchor, clip, nu, lam, u, btWb):
+def _defect_round(state, anchor, clip, nu, lam, u, utau, btWb):
     """One round of the defect-corrected iteration (round_body,
     regparam.py:364-407): an anchored exact chi^2 at the iterate (clipped
     to the anchor's trust region unless the anchor was just taken there),
@@ -249,25 +270,27 @@ def _defect_round(state, anchor, clip, nu, lam, u, btWb):
         (r_eval - a0).abs() - PAD_FREE_RADIUS, min=0.0)
     lo = torch.where(below, torch.maximum(lo, r_eval - pad), lo)
     hi = torch.where(below, hi, torch.minimum(hi, r_eval + pad))
-    d = c_r - whitened_chi2(r_eval, lam, u, btWb)
+    d = c_r - whitened_chi2(r_eval, lam, u, btWb, utau)
     dr = r_eval - r_prev
     big = dr.abs() > 1e-6
     slope = torch.where(torch.isfinite(d_prev) & big,
                         (d - d_prev) / torch.where(big, dr, torch.ones_like(dr)),
                         torch.zeros_like(d))
-    r_new = whitened_root_offset(lam, u, btWb, nu, d, r0=r_eval, slope=slope)
+    r_new = whitened_root_offset(lam, u, btWb, nu, d, r0=r_eval, slope=slope,
+                                 utau=utau)
     width = hi - lo
     r_clip = _clip(r_new, lo + 0.25 * width, hi - 0.25 * width)
     r_next = torch.where(torch.isnan(r_new), 0.5 * (lo + hi), r_clip)
     return lo, hi, r_next, r_eval, d
 
 
-def chi2_reg_param(AtWA, AtWb, btWb, N, R, eigA, eigR, want_anchor=False):
+def chi2_reg_param(AtWA, AtWb, btWb, N, R, eigA, eigR, want_anchor=False,
+                   tau=None):
     """chi2 = nu regularization parameter, the defect-corrected exact
     search ('exact' mode; the float64 path of regparam.py:223-516).
 
-    AtWA [B, n, n], AtWb [B, n], btWb [B], N [B]; R [n, n].
-    eigA: (w, V, s), AtWA's normalized eigendecomposition, shared with the
+    AtWA [B, n, n], AtWb [B, n], btWb [B], N [B]; R [n, n]; tau [n] or
+    None.  eigA: (w, V, s), AtWA's normalized eigendecomposition, shared with the
     other regularization matrices and the final solve; eigR: (V, s) of R's,
     computed once a run.
 
@@ -284,13 +307,12 @@ def chi2_reg_param(AtWA, AtWb, btWb, N, R, eigA, eigR, want_anchor=False):
     Returns LOG10(alpha) [B]: -inf for too-smooth, NaN for no bracket."""
     wA, VA, sA = eigA
     chi2_floor = chi2_from_eig_x(wA, VA, None, AtWb, btWb, sA)
-    lam, Q, Binv = whiten_pencil(R, (wA * sA[:, None], VA))
-    u = _mv(Q.transpose(-1, -2), _mv(Binv, AtWb))
+    lam, u, utau = _whiten(R, (wA * sA[:, None], VA), AtWb, tau)
 
     def anchor_at(a_log):
         """One eigendecomposition of X(10^a_log), as an M-shift anchor."""
         w, V, s = normalized_eigh(AtWA + alpha_of_log(a_log)[:, None, None] * R)
-        return make_anchor(a_log, w, V, s, R, AtWb)
+        return make_anchor(a_log, w, V, s, R, AtWb, tau)
 
     # alpha = 1 endpoint on the dominant side's basis (regparam.py:305-323)
     VR, sR = eigR
@@ -300,12 +322,14 @@ def chi2_reg_param(AtWA, AtWb, btWb, N, R, eigA, eigR, want_anchor=False):
     s1 = norm_scale(X1)
     M1 = project(X1 * (1.0 / s1)[:, None, None], Vboot)
     w1 = torch.diagonal(M1, dim1=-2, dim2=-1)
-    chi2_one = chi2_from_eig_x(w1, Vboot, M1, AtWb, btWb, s1, aR=R)
+    # alpha = 1 is m = 1, k = 0 exactly: aR = R, atau = tau
+    chi2_one = chi2_from_eig_x(w1, Vboot, M1, AtWb, btWb, s1, aR=R, atau=tau,
+                               AtWA=AtWA)
     nu, is_smooth, any_event = ladder_outcome(chi2_floor, chi2_one, N)
 
     # floor-failure rescue: where the exact floor finds no event, the rung
     # comes from the whitened floor (regparam.py:348-356)
-    fast_floor = whitened_chi2(_full(btWb, ALPHA_MIN), lam, u, btWb)
+    fast_floor = whitened_chi2(_full(btWb, ALPHA_MIN), lam, u, btWb, utau)
     nu_fb, smooth_fb, event_fb = ladder_outcome(fast_floor, chi2_one, N)
     use_fb = ~any_event & event_fb
     nu = torch.where(use_fb, nu_fb, nu)
@@ -315,7 +339,7 @@ def chi2_reg_param(AtWA, AtWb, btWb, N, R, eigA, eigR, want_anchor=False):
     # seed: the root of chi2_fast + D0 = nu, D0 the plateau defect
     d0 = torch.where(use_fb, torch.zeros_like(fast_floor),
                      chi2_floor - fast_floor)
-    r = whitened_root_offset(lam, u, btWb, nu, d0)
+    r = whitened_root_offset(lam, u, btWb, nu, d0, utau=utau)
     r = torch.clamp(torch.where(torch.isnan(r), torch.full_like(r, -50.0), r),
                     ALPHA_MIN + 0.1, -0.1)
     state = (_full(r, ALPHA_MIN), _full(r, 0.0), r, _full(r, float("nan")),
@@ -325,7 +349,8 @@ def chi2_reg_param(AtWA, AtWb, btWb, N, R, eigA, eigR, want_anchor=False):
         fresh = i in REANCHOR_ROUNDS
         if fresh:
             anchor = anchor_at(state[2])
-        state = _defect_round(state, anchor, not fresh, nu, lam, u, btWb)
+        state = _defect_round(state, anchor, not fresh, nu, lam, u, utau,
+                              btWb)
 
     # root-centred endgame: re-anchor at the candidate, then polish rounds
     # (the first unclipped, at the fresh anchor)
@@ -333,14 +358,14 @@ def chi2_reg_param(AtWA, AtWb, btWb, N, R, eigA, eigR, want_anchor=False):
     anchor = anchor_at(r_cand)
     state = (state[0], state[1], r_cand, state[3], state[4])
     for i in range(N_POLISH):
-        state = _defect_round(state, anchor, i > 0, nu, lam, u, btWb)
+        state = _defect_round(state, anchor, i > 0, nu, lam, u, utau, btWb)
     root = _outcome(_root_of(state), is_smooth, any_event)
     if not want_anchor:
         return root
     chi2_fb = whitened_chi2(
         torch.where(torch.isfinite(root), root, torch.full_like(root, ALPHA_MIN)),
-        lam, u, btWb)
-    fresh = make_anchor(_full(root, -float("inf")), wA, VA, sA, R, AtWb)
+        lam, u, btWb, utau)
+    fresh = make_anchor(_full(root, -float("inf")), wA, VA, sA, R, AtWb, tau)
     return root, select_anchor(is_smooth, fresh, anchor), chi2_fb
 
 

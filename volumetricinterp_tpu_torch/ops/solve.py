@@ -19,6 +19,10 @@ leading record axis:
   V'RV, solved on its kept block (no eigh per evaluation).
 * The whitened pencil (``whiten_pencil``) turns chi^2(alpha) into an
   O(nbasis) closed form (jitter instead of the cutoff).
+* An optional TAU vector per regularization matrix (data-informed
+  regularization, a pull toward a target profile: penalty
+  alpha (C'RC - 2 tau'C)) turns the rhs into AtWb + alpha tau; the chi^2
+  reported and searched stays the data chi^2 (final_solve_x's reg_taus_x).
 
 Regularization parameters travel as LOG10(alpha): raw alphas reach 1e-100;
 -inf encodes alpha = 0 (the too-smooth outcome) and NaN a failed search.
@@ -28,13 +32,24 @@ inf/NaN, as in the JAX package, and never raises.
 
 from __future__ import annotations
 
+import os
+import time
+from concurrent.futures import ThreadPoolExecutor
+
 import torch
 
 EPS64 = 2.220446049250313e-16  # the reference's f64 cutoff unit
 TINY64 = 2.2250738585072014e-308  # finfo(float64).tiny
 _LOG2_10 = 3.321928094887362
-# matrices decomposed by ``eigh`` since import (chip_smoke.py reads it)
+# matrices decomposed by ``eigh`` and ``host_eigh`` since import, and the
+# wall seconds of ``host_eigh`` calls, copies included (chip_smoke.py reads
+# all three)
 eigh_matrices = 0
+host_eigh_matrices = 0
+host_eigh_seconds = 0.0
+# host threads of ``host_eigh``: each decomposes a slice of the batch
+HOST_EIGH_THREADS = min(8, os.cpu_count() or 1)
+_host_pool = None
 
 
 def eigh(X):
@@ -42,6 +57,36 @@ def eigh(X):
     global eigh_matrices
     eigh_matrices += X[..., 0, 0].numel()
     return torch.linalg.eigh(X)
+
+
+def host_eigh(X):
+    """``eigh`` computed in LAPACK float64 on the host CPU, the batch split
+    over HOST_EIGH_THREADS threads; (w, V) come back on X's device.
+
+    AtWA's eigendecomposition runs here by design (ops/fit.py): it decides
+    the exact search's floor chi^2, which sums u_i^2 / w_i over the modes
+    just above the gelsd cutoff, and LAPACK resolves that near-null end as
+    the JAX package's CPU float64 reference does, while the card's
+    cuSOLVER lifts the floor of some records over N and NaN-fails them
+    (PERF.md).  Each pool thread runs its slice with one intra-op
+    thread: LAPACK's own threads on a 144x144 matrix only contend."""
+    global eigh_matrices, host_eigh_matrices, host_eigh_seconds, _host_pool
+    t0 = time.perf_counter()
+    n = X[..., 0, 0].numel()
+    eigh_matrices += n
+    host_eigh_matrices += n
+    Xh = X.detach().to("cpu").reshape((-1,) + X.shape[-2:])
+    if _host_pool is None:
+        _host_pool = ThreadPoolExecutor(HOST_EIGH_THREADS,
+                                        initializer=torch.set_num_threads,
+                                        initargs=(1,))
+    parts = [p for p in torch.tensor_split(Xh, HOST_EIGH_THREADS) if len(p)]
+    res = list(_host_pool.map(torch.linalg.eigh, parts))
+    w = torch.cat([r[0] for r in res]).reshape(X.shape[:-1])
+    V = torch.cat([r[1] for r in res]).reshape(X.shape)
+    w, V = w.to(X.device), V.to(X.device)
+    host_eigh_seconds += time.perf_counter() - t0
+    return w, V
 
 
 def pow10_split(a_log):
@@ -95,10 +140,11 @@ def norm_scale(X):
     return torch.where(t.abs() > 0, t.abs(), torch.ones_like(t))
 
 
-def normalized_eigh(X):
-    """(w, V, s): eigenpairs of X / s, s = norm_scale(X)."""
+def normalized_eigh(X, decompose=None):
+    """(w, V, s): eigenpairs of X / s, s = norm_scale(X), by ``decompose``
+    (``eigh`` when None, or ``host_eigh``)."""
     s = norm_scale(X)
-    w, V = eigh(X / s[..., None, None])
+    w, V = (decompose or eigh)(X / s[..., None, None])
     return w, V, s
 
 
@@ -115,13 +161,15 @@ def _kept_solve(w, u, rcond):
                        torch.zeros_like(w))
 
 
-def cutoff_chi2_x(AtWA, AtWb, btWb, aR):
+def cutoff_chi2_x(AtWA, AtWb, btWb, aR, atau=None):
     """chi^2 of the fit with X = AtWA + aR under reference gelsd-cutoff
     semantics (interpolate.py:220-261), batched: aR [B, nb, nb] is alpha R
-    already formed.  The float64 branch of the JAX package's
-    cutoff_chi2_x / chi2_from_eig_x (the cancellation-free identity)."""
+    already formed, atau [B, nb] alpha tau or None.  The float64 branch of
+    the JAX package's cutoff_chi2_x / chi2_from_eig_x (the
+    cancellation-free identity)."""
     w, V, s = normalized_eigh(AtWA + aR)
-    return chi2_from_eig_x(w, V, None, AtWb, btWb, s, aR=aR)
+    return chi2_from_eig_x(w, V, None, AtWb, btWb, s, aR=aR, atau=atau,
+                           AtWA=AtWA)
 
 
 def sym_pinv_apply(X, y, rcond_factor=None, want_H=True, rcond_factor_H=None):
@@ -161,21 +209,27 @@ def cutoff_chi2(a, AtWA, AtWb, btWb, R):
     return (C * AC).sum(-1) - 2.0 * (C * AtWb).sum(-1) + btWb
 
 
-def final_solve(AtWA, AtWb, btWb, reg_mats, log_alphas):
+def final_solve(AtWA, AtWb, btWb, reg_mats, log_alphas, reg_taus=None):
     """Coefficients, covariance and chi^2 of a record batch's regularized
     fit (interpolate.py:432-469 with calccov=True, and the chi^2 of
     interpolate.py:569): the float64 branch of final_solve_x.
 
     reg_mats: [nreg, nb, nb]; log_alphas: [nrec, nreg] LOG10 alphas (-inf
-    is alpha = 0).  Records with a NaN alpha are solved at alpha = 0 here;
-    the caller NaN-fills them.  Returns (C [nrec, nb], dC [nrec, nb, nb],
-    chi2 [nrec])."""
+    is alpha = 0); reg_taus: [nreg, nb] tau vectors or None (the rhs is then
+    AtWb + sum alpha tau, and chi^2 gains sum alpha tau'C).  Records with a
+    NaN alpha are solved at alpha = 0 here; the caller NaN-fills them.
+    Returns (C [nrec, nb], dC [nrec, nb, nb], chi2 [nrec])."""
     n = AtWA.shape[-1]
     aR = torch.zeros_like(AtWA)
+    rhs = AtWb
+    alphas = []
     for i in range(reg_mats.shape[0]):
         a = alpha_of_log(log_alphas[:, i])
         a = torch.where(torch.isnan(a), torch.zeros_like(a), a)
+        alphas.append(a)
         aR = aR + a[:, None, None] * reg_mats[i]
+        if reg_taus is not None:
+            rhs = rhs + a[:, None] * reg_taus[i]
     X = AtWA + aR
     # a root at alpha = inf (a search that ran off the line) cannot be
     # decomposed: solve the identity there; the outputs come out NaN
@@ -183,7 +237,8 @@ def final_solve(AtWA, AtWb, btWb, reg_mats, log_alphas):
     eye = torch.eye(n, dtype=X.dtype, device=X.device)
     w, V, s = normalized_eigh(torch.where(bad[:, None, None], eye, X))
     Vt = V.transpose(-1, -2)
-    u = (Vt @ AtWb[..., None])[..., 0]
+    ub = (Vt @ AtWb[..., None])[..., 0]
+    u = ub if reg_taus is None else (Vt @ rhs[..., None])[..., 0]
     z = _kept_solve(w, u, EPS64)
     C = (V @ z[..., None])[..., 0] / s[..., None]
     # dC = H AtWA H, H = V diag(1/w)|keep_H V' / s, the pinv cutoff
@@ -191,7 +246,10 @@ def final_solve(AtWA, AtWb, btWb, reg_mats, log_alphas):
     G = Vt @ AtWA @ V
     Hmid = inv_w_H[..., :, None] * G * inv_w_H[..., None, :]
     dC = V @ Hmid @ Vt / (s * s)[..., None, None]
-    chi2 = btWb - (u * z).sum(-1) * (1.0 / s)
+    chi2 = btWb - (ub * z).sum(-1) * (1.0 / s)
+    if reg_taus is not None:
+        for a, tau in zip(alphas, reg_taus):
+            chi2 = chi2 + a * (C * tau).sum(-1)
     chi2 = chi2 - (C * (aR @ C[..., None])[..., 0]).sum(-1)
     nan = float("nan")
     return (torch.where(bad[:, None], nan, C),
@@ -233,46 +291,65 @@ def keep_solve(u, M, keep):
     return torch.where(keep, z, torch.zeros_like(z))
 
 
-def chi2_from_eig_x(w, V, M, AtWb, btWb, s, aR=None):
+def chi2_from_eig_x(w, V, M, AtWb, btWb, s, aR=None, atau=None, AtWA=None):
     """Reference-cutoff chi^2 from eigenpairs (w, V) of X/s with the exact
     projection M = V'(X/s)V (the float64 branch of chi2_from_eig_x,
-    solve.py:811-858): keep = |w| > eps max|w|, z the kept-block solve,
-    chi2 = btWb - u'z/s - C'(aR)C with u = V'AtWb, C = Vz/s.  ``M=None``
-    means M = diag(w) exactly (a true eigenbasis): the kept solve is then
-    the division it reduces to.  ``aR``: alpha R inside X, [n, n] shared or
-    batched, or None for alpha = 0."""
-    ub = _mv(V.transpose(-1, -2), AtWb)
-    z = (_kept_solve(w, ub, EPS64) if M is None
-         else keep_solve(ub, M, _keep_mask(w)))
+    solve.py:811-858): keep = |w| > eps max|w|, z the kept-block solve of
+    u = V'(AtWb + atau), chi2 = btWb - ub'z/s + C'atau - C'(aR)C with
+    ub = V'AtWb, C = Vz/s.  ``M=None`` means M = diag(w) exactly (a true
+    eigenbasis): the kept solve is then the division it reduces to.
+    ``aR``: alpha R inside X, [n, n] shared or batched, or None for
+    alpha = 0; ``atau``: alpha tau [.., n] or None, with ``AtWA`` [B, n, n].
+
+    Where the pull dominates (|C'atau| > |C'AtWb|, e.g. alpha = 1 with a
+    density profile: C'atau ~ C'(aR)C ~ 1e22 cancel to chi2 ~ 1e4), the
+    last two terms are taken as C'(AtWA C) - C'AtWb, which the kept-block
+    normal equations make equal and which carries no such cancellation.
+    The JAX package keeps the identity there, and its chi^2 at alpha = 1
+    comes out as rounding noise of either sign (PERF.md)."""
+    Vt = V.transpose(-1, -2)
+    ub = _mv(Vt, AtWb)
+    u = ub if atau is None else _mv(Vt, AtWb + atau)
+    z = (_kept_solve(w, u, EPS64) if M is None
+         else keep_solve(u, M, _keep_mask(w)))
     chi2 = btWb - _dot(ub, z) * (1.0 / s)
+    if aR is None and atau is None:
+        return chi2
+    C = _mv(V, z) / s[..., None]
+    if atau is None:
+        return chi2 - _dot(C, _mv(aR, C))
+    pull, data = _dot(C, atau), _dot(C, AtWb)
+    ident = chi2 + pull
     if aR is not None:
-        C = _mv(V, z) / s[..., None]
-        chi2 = chi2 - _dot(C, _mv(aR, C))
-    return chi2
+        ident = ident - _dot(C, _mv(aR, C))
+    return torch.where(pull.abs() > data.abs(),
+                       chi2 + _dot(C, _mv(AtWA, C)) - data, ident)
 
 
 # ---------------------------------------------------------------------------
 # M-shift anchors (solve.py:870-992, 1437-1524; float64 branches)
 # ---------------------------------------------------------------------------
 
-ANCHOR_KEYS = ("a_log", "V", "s", "M", "P", "ub")
-
-
-def make_anchor(a_log, w, V, s, R, AtWb):
+def make_anchor(a_log, w, V, s, R, AtWb, tau=None):
     """An M-shift anchor from the eigendecomposition (w, V, s) of
     X(10^a_log)/s (a_log = -inf for AtWA alone): the float64 branch of
     make_anchor_x (solve.py:898-914).  M = diag(w) exactly, P = V'RV in raw
-    R units, ub = V'AtWb."""
+    R units, ub = V'AtWb, ut = V'tau (None without a tau)."""
+    Vt = V.transpose(-1, -2)
     return {"a_log": a_log, "V": V, "s": s, "M": torch.diag_embed(w),
-            "P": project(R, V), "ub": _mv(V.transpose(-1, -2), AtWb)}
+            "P": project(R, V), "ub": _mv(Vt, AtWb),
+            "ut": None if tau is None else _mv(Vt, tau)}
 
 
 def select_anchor(cond, a, b):
     """Per record: anchor a where cond, else b."""
     out = {}
-    for key in ANCHOR_KEYS:
-        c = cond.reshape(cond.shape + (1,) * (a[key].dim() - cond.dim()))
-        out[key] = torch.where(c, a[key], b[key])
+    for key, x in a.items():
+        if x is None:
+            out[key] = None
+            continue
+        c = cond.reshape(cond.shape + (1,) * (x.dim() - cond.dim()))
+        out[key] = torch.where(c, x, b[key])
     return out
 
 
@@ -288,12 +365,24 @@ def anchor_shift_M(anchor, m, k):
     return anchor["M"] + ((a - a_star) / anchor["s"])[:, None, None] * anchor["P"]
 
 
+def _anchor_rhs(anchor, m, k):
+    """V'(AtWb + alpha tau) at alpha = m 2^k: ub, plus alpha ut with a tau."""
+    if anchor["ut"] is None:
+        return anchor["ub"]
+    return anchor["ub"] + (m * torch.exp2(k))[:, None] * anchor["ut"]
+
+
 def _anchor_chi2(anchor, m, k, z, btWb):
-    """chi2 = btWb - ub'z/s - alpha z'Pz/s^2 at alpha = m 2^k."""
+    """chi2 = btWb - ub'z/s - alpha z'Pz/s^2 (+ alpha z'ut/s with a tau) at
+    alpha = m 2^k."""
     s = anchor["s"]
     chi2 = btWb - _dot(anchor["ub"], z) * (1.0 / s)
     zPz = _dot(z, _mv(anchor["P"], z))
-    return chi2 - m * torch.exp2(k) * zPz / (s * s)
+    a = m * torch.exp2(k)
+    chi2 = chi2 - a * zPz / (s * s)
+    if anchor["ut"] is not None:
+        chi2 = chi2 + a * _dot(z, anchor["ut"]) / s
+    return chi2
 
 
 def anchor_chi2(anchor, a_log, btWb):
@@ -304,7 +393,7 @@ def anchor_chi2(anchor, a_log, btWb):
     m, k = pow10_split(a_log)
     M = anchor_shift_M(anchor, m, k)
     keep = _keep_mask(torch.diagonal(M, dim1=-2, dim2=-1))
-    z = keep_solve(anchor["ub"], M, keep)
+    z = keep_solve(_anchor_rhs(anchor, m, k), M, keep)
     return _anchor_chi2(anchor, m, k, z, btWb)
 
 
@@ -320,7 +409,7 @@ def final_solve_anchor(anchor, a_log, AtWA, btWb):
     n = w.shape[-1]
     keep_C = _keep_mask(w)
     keep_H = _keep_mask(w, float(n) * EPS64)
-    z = keep_solve(anchor["ub"], M, keep_C)
+    z = keep_solve(_anchor_rhs(anchor, m, k), M, keep_C)
     V, s = anchor["V"], anchor["s"]
     Vt = V.transpose(-1, -2)
     C = _mv(V, z) / s[:, None]
@@ -361,18 +450,25 @@ def whiten_pencil(R, eig_AtWA):
     return lam * (sG * sR)[:, None], Q, Binv
 
 
-def whitened_chi2(a_log, lam, u, btWb):
+def whitened_chi2(a_log, lam, u, btWb, utau=None):
     """chi^2(10^a_log) from whitened quantities (u = Q'B^-1 AtWb):
     sum u^2 (d^2 - 2d) + btWb, d = 1/(1 + alpha lam), alpha the float32-
-    mantissa split (whitened_chi2_split, solve.py:1789-1795).  a_log is
-    [B] or [B, npts]; lam, u [B, n]; btWb [B]."""
+    mantissa split (whitened_chi2_split, solve.py:1789-1795).  With a tau
+    (utau = Q'B^-1 tau, t = alpha utau) the rhs is u + t and chi^2 gains
+    sum t (2u (d^2 - d) + d^2 t) (whitened_chi2_tau_split, :1798-1812, in
+    a form whose tau term is exactly 0 for a zero tau).  a_log is [B] or
+    [B, npts]; lam, u, utau [B, n]; btWb [B]."""
     m, k = pow10_split(a_log)
     extra = (1,) * (a_log.dim() - 1)
     lam = lam.reshape(lam.shape[:1] + extra + lam.shape[1:])
     u = u.reshape(lam.shape)
     al = m[..., None] * lam * torch.exp2(k)[..., None]
     d = 1.0 / (1.0 + al)
-    return (u * u * (d * d - 2.0 * d)).sum(-1) + btWb.reshape(btWb.shape + extra)
+    chi2 = (u * u * (d * d - 2.0 * d)).sum(-1) + btWb.reshape(btWb.shape + extra)
+    if utau is None:
+        return chi2
+    t = (m * torch.exp2(k))[..., None] * utau.reshape(lam.shape)
+    return chi2 + (t * (2.0 * u * (d * d - d) + d * d * t)).sum(-1)
 
 
 def deflated_diag(M):
