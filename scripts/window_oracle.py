@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Build tests/oracle/day1000_seed1_window64_<tag>.npz, or, for the tag
-timeaxis, tests/oracle/day1000_seed1_timeaxis.npz.
+"""Build tests/oracle/day1000_seed1_window64_<tag>.npz, or, for the tags
+timeaxis, radbasfun and lobo, tests/oracle/day1000_seed1_<tag>.npz.
 
 The JAX package's CPU float64 fit of the first 64 records of the seed-1
 synthetic day (nrec=1000, nan_frac=0.03, bad_frac=0.01, basis-projected
@@ -29,9 +29,25 @@ value and error [1000, 600]: the synthetic day's projection of its truth
 (a least-squares solve at rcond 1e-10) follows the LAPACK build in its
 last bits, and chip_smoke.py phase 4e feeds the joint solve these bytes.
 
+radbasfun: the whole seed-1 day fitted with the radbasfun model at the
+JAX package's config defaults (EPS = 1e5, LATRANGE 74,80, LONRANGE
+260,285, ALTRANGE 100,600, NUMGRIDPNT = 7: 343 basis functions) and no
+regularization (the plain cutoff solve), by fit_records in chunks of 128
+records as Interpolate runs it.  Stores C [1000, 343] and chi2 [1000] (NaN
+for a failed record); no covariance (940 MB).
+
+lobo: the leave-one-beam-out sweep (sweep.py) on the first 64 records of
+the seed-1 day at the production order (MAXK=4, MAXL=6, 0thorder) over
+all 20 beams and LOBO_ALPHAS, which bracket the day's fitted alphas
+(day1000_seed1_oracle.npz: median log10 -31.1 on those records): the
+per-entry held-out chi2 per [64, 20, 9], and order_sweep's score matrix
+over LOBO_ORDERS and its argmin.  lobo_cv runs 8 records at a time (its
+records are independent), which bounds the vmapped batch's memory.
+
 Wall time of one run on an 8-core x86 CPU host (JAX 0.9.0, float64, cold
 compile included): exact_grid not recorded; exact 65 s; fast 21 s; gcv
-62 s; timeaxis 1,928 s, beside other work on the same 8 cores.
+62 s; timeaxis 1,928 s, beside other work on the same 8 cores; radbasfun
+and lobo as printed by the run (CHANGES.md).
 
 Usage:  JAX_PLATFORMS=cpu python scripts/window_oracle.py [tag]
         (default tag: exact_grid)
@@ -64,6 +80,14 @@ QUAD_MODE = gauss
 """
 
 
+RBF_CFG = """
+[DEFAULT]
+[MODEL]
+NAME = radbasfun
+"""
+LOBO_NREC = 64
+LOBO_ALPHAS = [float(a) for a in range(-35, -26)]
+LOBO_ORDERS = [(2, 3), (3, 5), (4, 6)]
 PROFILE = "chapman,1e11,300,50"
 TIME_COUPLING = 1e-4
 
@@ -104,14 +128,90 @@ TIME_SMOOTHING = gcv""")
     print(f"{out}: {time.perf_counter() - t0:.1f} s")
 
 
+def seed1_day(model):
+    """The seed-1 day's QC'd (lat, lon, alt, value, error) and beam index,
+    the day made with ``model`` as its smooth-in model."""
+    from volumetricinterp_tpu.io.amisr import beam_index, read_datafile
+    from volumetricinterp_tpu.io.synth import write_synthetic_amisr
+
+    with tempfile.TemporaryDirectory() as tmp:
+        raw = os.path.join(tmp, "day.h5")
+        write_synthetic_amisr(raw, nrec=1000, seed=1, smooth_in_model=model,
+                              nan_frac=0.03, bad_frac=0.01)
+        _, lat, lon, alt, value, error = read_datafile(
+            raw, "dens", [1e10, 1e13], [0.1, 10.0], [1, 2, 3, 4])
+        return lat, lon, alt, value, error, beam_index(raw)
+
+
+def radbasfun():
+    """The radbasfun oracle (see the module docstring)."""
+    from volumetricinterp_tpu.config import Config
+    from volumetricinterp_tpu.models.radbasfun import Model as RBF
+    from volumetricinterp_tpu.models.sphharmlag import Model
+    from volumetricinterp_tpu.ops.fit import fit_records
+
+    t0 = time.perf_counter()
+    lat, lon, alt, value, error, _ = seed1_day(Model(Config.from_text(CFG)))
+    model = RBF(Config.from_text(RBF_CFG))
+    A = np.asarray(model.basis(lat, lon, alt))
+    R = np.zeros((0, model.nbasis, model.nbasis))
+    C, chi2 = [], []
+    for s in range(0, value.shape[0], 128):
+        c, _, x2, _ = fit_records(value[s:s + 128], error[s:s + 128], A, R,
+                                  method="chi2", regparam_mode="exact")
+        C.append(np.asarray(c))
+        chi2.append(np.asarray(x2))
+    out = os.path.join(ROOT, "tests", "oracle", "day1000_seed1_radbasfun.npz")
+    np.savez_compressed(out, C=np.concatenate(C), chi2=np.concatenate(chi2))
+    print(f"{out}: {time.perf_counter() - t0:.1f} s")
+
+
+def lobo():
+    """The leave-one-beam-out oracle (see the module docstring)."""
+    from volumetricinterp_tpu.config import Config
+    from volumetricinterp_tpu.models.sphharmlag import Model
+    from volumetricinterp_tpu.sweep import lobo_cv
+
+    t0 = time.perf_counter()
+    lat, lon, alt, value, error, bidx = seed1_day(
+        Model(Config.from_text(CFG)))
+    v, e = value[:LOBO_NREC], error[:LOBO_NREC]
+
+    def per_entry(model):
+        A = np.asarray(model.basis(lat, lon, alt))
+        R = np.asarray(model.eval_psi())
+        return np.concatenate([
+            lobo_cv(v[s:s + 8], e[s:s + 8], A, bidx, R, LOBO_ALPHAS)[1]
+            for s in range(0, LOBO_NREC, 8)])
+
+    # order_sweep's loop (volumetricinterp_tpu/sweep.py), chunked
+    scores, per = [], None
+    for maxk, maxl in LOBO_ORDERS:
+        cfg = Config.from_text(CFG)
+        cfg.model.maxk, cfg.model.maxl = maxk, maxl
+        p = per_entry(Model(cfg))
+        scores.append(p.sum(axis=(0, 1)))
+        if (maxk, maxl) == (4, 6):
+            per = p
+    scores = np.asarray(scores)
+    best = np.unravel_index(np.argmin(scores), scores.shape)
+    out = os.path.join(ROOT, "tests", "oracle", "day1000_seed1_lobo.npz")
+    np.savez_compressed(out, per=per, scores=scores, alphas=LOBO_ALPHAS,
+                        orders=LOBO_ORDERS, best_order=LOBO_ORDERS[best[0]],
+                        best_log10_alpha=LOBO_ALPHAS[best[1]])
+    print(f"{out}: {time.perf_counter() - t0:.1f} s; best order "
+          f"{LOBO_ORDERS[best[0]]}, log10 alpha {LOBO_ALPHAS[best[1]]}")
+
+
 def main(tag="exact_grid"):
     sys.path.insert(0, ROOT)
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
-    if tag == "timeaxis":
-        return timeaxis()
+    if tag in ("timeaxis", "radbasfun", "lobo"):
+        return {"timeaxis": timeaxis, "radbasfun": radbasfun,
+                "lobo": lobo}[tag]()
     method, mode = SETTINGS[tag]
     from volumetricinterp_tpu.config import Config
     from volumetricinterp_tpu.io.amisr import read_datafile

@@ -131,11 +131,14 @@ def test_cli_files_interchange(fitted, writer):
 
 
 def test_cli_unported_routes_raise(tmp_path, capsys):
-    """--distributed raises naming its ROADMAP entry; --validate and
-    validate_main are ported and read the configuration first."""
+    """--distributed, --validate and validate_main are ported and read the
+    configuration first: --distributed joins its world (one process here,
+    no VITPU_* or torchrun variables) and says so before the missing file
+    raises (tests/test_torch_parallel.py runs a two-process world)."""
     cfg = str(tmp_path / "none.ini")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: parallel"):
+    with pytest.raises(FileNotFoundError):
         main([cfg, "--distributed", "--device", "cpu"])
+    assert "distributed: process 0 / 1" in capsys.readouterr().out
     for run in (lambda: main([cfg, "--validate", "--device", "cpu"]),
                 lambda: validate_main([cfg, "--device", "cpu"])):
         with pytest.raises(FileNotFoundError):

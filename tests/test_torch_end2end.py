@@ -187,14 +187,30 @@ def test_resume_of_a_finished_file(day, tmp_path):
 
 
 def test_unported_options_raise(day):
-    """The options still to port raise naming their ROADMAP entry; the
-    port's default device, CUDA, raises without a card."""
-    for old, new in (("NAME = sphharmlag", "NAME = radbasfun"),
-                     ("[TPU]", "[TPU]\nBASIS_IMPL = series")):
-        assert old in day["text"]
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1: radbasfun and series"):
-            Interpolate(day["text"].replace(old, new), device="cpu")
+    """The options the first slices left out now run through Interpolate:
+    BASIS_IMPL = series fits the day as the table basis does (the same
+    outcome classes, chi2 within the cutoff-wall envelope of
+    test_fits_agree), and NAME = radbasfun fits it with no regularization
+    (radbasfun has none: 0thorder raises as in the reference).  The port's
+    default device, CUDA, raises without a card."""
+    ref = day["out"]["torch"][0]
+    text = day["text"].replace("OUTPUTFILENAME = test_output.h5",
+                               "OUTPUTFILENAME =")
+    series = Interpolate(text.replace("[TPU]", "[TPU]\nBASIS_IMPL = series"),
+                         device="cpu")
+    series.calc_coeffs()
+    np.testing.assert_array_equal(np.isnan(series.chi_sq), np.isnan(ref.chi_sq))
+    np.testing.assert_array_equal(series.reg_params == 0, ref.reg_params == 0)
+    f = np.isfinite(ref.chi_sq)
+    np.testing.assert_allclose(series.chi_sq[f], ref.chi_sq[f], rtol=1e-3)
+    rbf_text = text.replace("NAME = sphharmlag", "NAME = radbasfun")
+    with pytest.raises(KeyError):
+        Interpolate(rbf_text, device="cpu").calc_coeffs()
+    rbf = Interpolate(rbf_text.replace("REGULARIZATION_LIST = 0thorder",
+                                       "REGULARIZATION_LIST ="), device="cpu")
+    rbf.calc_coeffs()
+    assert rbf.Coeffs.shape == (20, 343) and rbf.reg_params.shape == (20, 0)
+    assert np.isfinite(rbf.chi_sq).all() and (rbf.chi_sq >= 0).all()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             Interpolate(day["text"])  # device="cuda" is the default

@@ -63,13 +63,26 @@ def test_basis_matches_jax_and_oracle(small_config_text, order):
 
 
 def test_unported_model_options_raise(small_config_text):
+    """The model options the first slices left out now build: radbasfun
+    through the registry (the JAX package's defaults, 7^3 centres, no
+    regularization) and BASIS_IMPL = series (its basis within 1e-5 of the
+    table basis' sup, tests/test_torch_series.py); an unknown name
+    raises."""
     from volumetricinterp_tpu_torch.models import make_model
+    from volumetricinterp_tpu_torch.models.radbasfun import Model as RBF
 
-    with pytest.raises(NotImplementedError):
-        make_model("radbasfun", TConfig.from_text(small_config_text))
-    with pytest.raises(NotImplementedError):
-        TModel(TConfig.from_text(small_config_text
-                                 + "\n[TPU]\nBASIS_IMPL = series\n"))
+    rbf = make_model("radbasfun", TConfig.from_text(small_config_text))
+    assert isinstance(rbf, RBF) and rbf.nbasis == 343
+    assert rbf.eval_reg_matricies == {}
+    series = TModel(TConfig.from_text(small_config_text
+                                      + "\n[TPU]\nBASIS_IMPL = series\n"))
+    table = TModel(TConfig.from_text(small_config_text))
+    pts = (np.array([76.0, 77.5]), np.array([262.0, 266.0]),
+           np.array([2e5, 4e5]))
+    As, At = series.basis(*pts), table.basis(*pts)
+    assert np.max(np.abs(As - At)) <= 1e-5 * np.max(np.abs(At))
+    with pytest.raises(ValueError):
+        make_model("nosuchmodel", TConfig.from_text(small_config_text))
 
 
 def test_host_special_functions_match_jax():

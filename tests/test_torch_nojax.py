@@ -30,6 +30,14 @@ from volumetricinterp_tpu_torch.ops.grid_eval import GridEvaluator
 from volumetricinterp_tpu_torch.ops.timejoint import fit_time_coupled
 from volumetricinterp_tpu_torch.ops.timesmooth import (eval_time_spline,
                                                        fit_time_spline)
+from volumetricinterp_tpu_torch.io.amisr import beam_indices
+from volumetricinterp_tpu_torch.models import make_model
+from volumetricinterp_tpu_torch.ops.grid_eval import RBFGridEvaluator
+from volumetricinterp_tpu_torch.parallel import make_mesh
+from volumetricinterp_tpu_torch.parallel.distributed import (
+    initialize_distributed)
+from volumetricinterp_tpu_torch.sweep import lobo_cv
+from volumetricinterp_tpu_torch.utils.profiling import debug_mode, trace
 
 cfg = Config.from_text('''
 [DEFAULT]
@@ -62,7 +70,19 @@ ev = GridEvaluator(model, (t.min(), t.max()), device="cpu")
 out = ev.eval_records(C.numpy(), lat, lon, alt).numpy()
 ref = (A @ C.numpy().T).T
 assert np.max(np.abs(out - ref)) < 5e-5 * np.max(np.abs(ref))
+scores, per = lobo_cv(v, e, A, beam_indices(d), model.eval_psi(), [-22.0],
+                      device="cpu")
+assert per.shape == (6, 20, 1) and np.isfinite(scores).all()
+assert initialize_distributed(device="cpu") == (0, 1)
+assert make_mesh().size == 1
+rbf = make_model("radbasfun", Config.from_text("[MODEL]\nNUMGRIDPNT = 3\n"))
+Ar = rbf.basis(lat, lon, alt)
+with debug_mode():
+    out = RBFGridEvaluator(rbf, device="cpu").eval_records(
+        np.ones((1, 27)), lat, lon, alt).numpy()
+assert np.max(np.abs(out[0] - Ar.sum(-1))) < 5e-5 * np.max(Ar.sum(-1))
 for make in (lambda: GridEvaluator(model, (t.min(), t.max()), device="cuda"),
+             lambda: RBFGridEvaluator(rbf, device="cuda"),
              lambda: vt.Interpolate(cfg, device="cuda")):
     try:
         make()

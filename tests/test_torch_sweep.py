@@ -1,0 +1,112 @@
+"""PyTorch port, the leave-one-beam-out sweep (sweep.py) against the JAX
+package's, on the CPU in float64: beam indices, held-out scores, brute-
+force beam deletion, and order_sweep's selection."""
+
+import numpy as np
+import pytest
+import scipy.linalg
+
+from volumetricinterp_tpu.config import Config as JConfig
+from volumetricinterp_tpu.io.amisr import beam_index as jbeam_index
+from volumetricinterp_tpu.io.synth import write_synthetic_amisr
+from volumetricinterp_tpu.models.sphharmlag import Model as JModel
+from volumetricinterp_tpu.sweep import lobo_cv as jlobo_cv
+from volumetricinterp_tpu.sweep import order_sweep as jorder_sweep
+
+from volumetricinterp_tpu_torch.io.amisr import (beam_index, beam_indices,
+                                                 read_datafile)
+from volumetricinterp_tpu_torch.io.synth import synthetic_amisr_datasets
+from volumetricinterp_tpu_torch.ops import solve
+from volumetricinterp_tpu_torch.sweep import lobo_cv, order_sweep
+
+EPS64 = 2.220446049250313e-16
+
+
+@pytest.fixture(scope="module")
+def sweep_data(tmp_path_factory, small_config_text):
+    """tests/test_sweep.py's day: 3 records, seed 31, the small order."""
+    fn = str(tmp_path_factory.mktemp("sweep_torch") / "synth.h5")
+    model = JModel(JConfig.from_text(small_config_text))
+    kw = dict(nrec=3, seed=31, nan_frac=0.03, bad_frac=0.0)
+    write_synthetic_amisr(fn, smooth_in_model=model, **kw)
+    _, lat, lon, alt, values, errors = read_datafile(
+        fn, "dens", [1e10, 1e13], [0.1, 10.0], [1, 2, 3, 4])
+    return dict(fn=fn, kw=kw, model=model, A=np.asarray(model.basis(lat, lon,
+                                                                    alt)),
+                psi=np.asarray(model.eval_psi()), values=values,
+                errors=errors, bidx=beam_index(fn), lat=lat, lon=lon, alt=alt)
+
+
+def test_beam_index(sweep_data):
+    """The file reader, the in-memory datasets and the JAX package agree;
+    20 beams, aligned with the reader's point axis."""
+    d = sweep_data
+    np.testing.assert_array_equal(d["bidx"], jbeam_index(d["fn"]))
+    mem = synthetic_amisr_datasets(smooth_in_model=d["model"], **d["kw"])
+    np.testing.assert_array_equal(beam_indices(mem), d["bidx"])
+    assert d["bidx"].shape == d["lat"].shape and d["bidx"].max() == 19
+
+
+def test_lobo_matches_jax(sweep_data):
+    """Per (record, beam) held-out chi2 against the JAX package's lobo_cv.
+
+    At log10 alpha -17 every leave-one-out system keeps its smallest mode
+    above 10 eps of the largest: every entry within 1e-7 relative.  At the
+    JAX test's -25 and -23 this small basis' systems carry modes within a
+    few eps of the gelsd cutoff, where two LAPACK builds keep or scale a
+    mode differently (the entry of record 1, beam 9 at -23 moves 1.8e-2):
+    the median entry is held to 1e-7 there, and
+    test_lobo_matches_brute_force holds the entries against a direct
+    refit."""
+    d = sweep_data
+    la = [-25.0, -23.0, -17.0]
+    n0 = solve.eigh_matrices
+    scores, per = lobo_cv(d["values"], d["errors"], d["A"], d["bidx"],
+                          d["psi"], la, device="cpu")
+    assert solve.eigh_matrices - n0 == 3 * 20 * 3  # one a (rec, beam, alpha)
+    sj, pj = jlobo_cv(d["values"], d["errors"], d["A"], d["bidx"], d["psi"],
+                      la)
+    assert per.shape == (3, 20, 3)
+    np.testing.assert_allclose(scores, per.sum(axis=(0, 1)))
+    rel = np.abs(per - pj) / np.abs(pj)
+    assert rel[..., 2].max() <= 1e-7
+    assert np.median(rel[..., :2], axis=(0, 1)).max() <= 1e-7
+    np.testing.assert_allclose(scores[2], sj[2], rtol=1e-7)
+    # the -17 systems are as conditioned as the docstring says
+    tot = np.einsum("pi,rp,pj->rij", d["A"],
+                    np.where(np.isfinite(d["values"]), d["errors"], 1.0) ** -2
+                    * np.isfinite(d["values"]), d["A"])
+    w = np.linalg.eigvalsh(tot + 1e-17 * d["psi"])
+    assert (np.abs(w).min(-1) / np.abs(w).max(-1) > 10 * EPS64).all()
+
+
+def test_lobo_matches_brute_force(sweep_data):
+    """tests/test_sweep.py's identity: deleting beam 2 of record 1 and
+    refitting with scipy gives the same held-out chi2 (1e-7 relative)."""
+    d = sweep_data
+    A, values, errors, bidx, psi = (d[k] for k in ("A", "values", "errors",
+                                                   "bidx", "psi"))
+    la = [-25.0, -23.0]
+    _, per = lobo_cv(values, errors, A, bidx, psi, la, device="cpu")
+    r, b = 1, 2
+    for ai, a in enumerate(la):
+        v, e = values[r], errors[r]
+        fin = np.isfinite(v)
+        train, test = fin & (bidx != b), fin & (bidx == b)
+        At, bt, Wt = A[train], v[train], e[train] ** -2.0
+        X = np.einsum("ji,j,jk->ik", At, Wt, At) + 10.0**a * psi
+        C = scipy.linalg.lstsq(X, np.einsum("ji,j,j->i", At, Wt, bt))[0]
+        resid = A[test] @ C - v[test]
+        expected = np.sum(resid**2 * e[test] ** -2.0)
+        assert np.isclose(per[r, b, ai], expected, rtol=1e-7), a
+
+
+def test_order_sweep_selects_as_jax(sweep_data, small_config_text):
+    d = sweep_data
+    args = (d["values"], d["errors"], d["lat"], d["lon"], d["alt"], d["bidx"])
+    kw = dict(orders=[(2, 2), (2, 3)], log10_alphas=[-26.0, -24.0, -22.0])
+    res = order_sweep(small_config_text, *args, device="cpu", **kw)
+    ref = jorder_sweep(JConfig.from_text(small_config_text), *args, **kw)
+    assert res["scores"].shape == (2, 3) and np.isfinite(res["scores"]).all()
+    assert res["best_order"] == ref["best_order"]
+    assert res["best_log10_alpha"] == ref["best_log10_alpha"]

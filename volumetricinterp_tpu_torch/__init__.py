@@ -1,9 +1,11 @@
 """volumetricinterp_tpu_torch — the PyTorch / CUDA port of volumetricinterp_tpu.
 
 Regularized weighted least-squares fits of AMISR radar point measurements
-to a spherical-cap-harmonic x Laguerre basis, coefficient files in the
-reference HDF5 schema, and evaluation of the fitted model at points and on
-dense grids — on one NVIDIA H100.
+to a spherical-cap-harmonic x Laguerre basis (or Gaussian radial basis
+functions, models/radbasfun.py), coefficient files in the reference HDF5
+schema, evaluation of the fitted model at points and on dense grids, and
+leave-one-beam-out model selection (sweep.py) — on an NVIDIA H100, or on
+several cards over torch.distributed (parallel/).
 
 * The fit runs in float64 torch on the chosen device (ops/fit.py).
 * Dense grids run through a hand-written Hopper kernel

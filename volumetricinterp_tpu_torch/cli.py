@@ -7,7 +7,10 @@ reference run_volumetricinterp.py:14-35 and run_validate.py:16-28).
 the same route alone), --starttime/--endtime window the fit, --resume
 continues a partially written output file, --profile prints the phase
 times, --device picks the device (cuda by default; the CPU runs only when
-asked for).
+asked for).  --distributed joins a torch.distributed world (one process a
+card, parallel/distributed.py: torchrun's variables or VITPU_COORDINATOR /
+VITPU_NUM_PROCESSES / VITPU_PROCESS_ID) and shards the fit over it;
+process 0 writes the output file.
 """
 
 from __future__ import annotations
@@ -49,21 +52,39 @@ def main(argv=None):
     parser.add_argument("--profile", action="store_true",
                         help="print per-phase wall times at the end")
     parser.add_argument("--distributed", action="store_true",
-                        help="not ported to the PyTorch package yet")
+                        help="join a torch.distributed world (torchrun, or "
+                             "VITPU_COORDINATOR / VITPU_NUM_PROCESSES / "
+                             "VITPU_PROCESS_ID) and shard the fit over it: "
+                             "records over processes, points inside a row "
+                             "of [TPU] MESH_RECORDS x MESH_POINTS")
     _device_arg(parser)
     args = vars(parser.parse_args(argv))
 
-    if args["distributed"]:
-        raise NotImplementedError(
-            "--distributed is not ported to the PyTorch package yet "
-            "(ROADMAP queue 1: parallel)")
     if args["validate"]:
         _validate(args)
         return
+    if not args["distributed"]:
+        _fit(args, args["device"])
+        return
 
+    import torch.distributed as dist
+
+    from .parallel.distributed import initialize_distributed, local_device
+
+    owned = not dist.is_initialized()
+    pid, nproc = initialize_distributed(device=args["device"])
+    print(f"distributed: process {pid} / {nproc}")
+    try:
+        _fit(args, local_device(args["device"]))
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _fit(args, device):
     from .interpolate import Interpolate
 
-    interp = Interpolate(args["config_file"], device=args["device"])
+    interp = Interpolate(args["config_file"], device=device)
     st = (dt.datetime.fromisoformat(args["starttime"])
           if args["starttime"] else None)
     et = dt.datetime.fromisoformat(args["endtime"]) if args["endtime"] else None

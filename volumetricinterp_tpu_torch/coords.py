@@ -4,7 +4,7 @@ Host numpy float64 halves (``np_geodetic2ecef``, ``np_geodetic_to_cap``,
 ``ecef2geodetic``, ``cap_rotation_axis_angle``, ``rodrigues_rotate``) are
 copies of the JAX package's: the fit's design matrix, Estimate's point API
 and gradients, and Validate's plot grid transform on the host in exact
-float64.  ``cap_rotation`` gives
+float64.  ``geodetic2ecef`` is their torch twin.  ``cap_rotation`` gives
 the rotation constants of the cap transform, and ``geodetic_to_cap`` is
 the torch transform used by the grid evaluator's plain version; both follow
 models/sphharmlag.py:324-359 of the reference, including its +theta0
@@ -28,6 +28,22 @@ def np_geodetic2ecef(gdlat, gdlon, gdalt):
     x = (n + alt) * np.cos(lat) * np.cos(lon)
     y = (n + alt) * np.cos(lat) * np.sin(lon)
     z = (n * (1.0 - WGS84_E2) + alt) * sin_lat
+    return x, y, z
+
+
+def geodetic2ecef(gdlat, gdlon, gdalt):
+    """Geodetic (deg, deg, m) -> ECEF (m), WGS-84, torch in the inputs'
+    dtype and on their device (the radbasfun grid evaluator's float64
+    transform)."""
+    import torch
+
+    lat = torch.deg2rad(gdlat)
+    lon = torch.deg2rad(gdlon)
+    sin_lat = torch.sin(lat)
+    n = WGS84_A / torch.sqrt(1.0 - WGS84_E2 * sin_lat**2)
+    x = (n + gdalt) * torch.cos(lat) * torch.cos(lon)
+    y = (n + gdalt) * torch.cos(lat) * torch.sin(lon)
+    z = (n * (1.0 - WGS84_E2) + gdalt) * sin_lat
     return x, y, z
 
 

@@ -9,9 +9,10 @@ reference estimate.py:13-221 and the JAX package's Estimate).
   records (timeinterp=True), or evaluates the file's /TimeFit spline
   (timeinterp='spline', covariance from the nearest record).
 * ``grid_eval`` / ``evaluate_records`` (dense grids, keogram/volume
-  products) run through the float32 grid evaluator on ``device``: the
-  Hopper kernel on the card, with the FoV mask applied inside the kernel,
-  so one [chunk, npoints] output buffer exists per record chunk.
+  products) run through the float32 grid evaluator on ``device``: for
+  sphharmlag the Hopper kernel on the card, with the FoV mask applied
+  inside the kernel, so one [chunk, npoints] output buffer exists per
+  record chunk; for radbasfun ops/grid_eval.RBFGridEvaluator.
 """
 
 from __future__ import annotations
@@ -171,21 +172,24 @@ class Estimate:
     def _prepare_grid(self, gdlat, gdlon, gdalt, need_hull):
         """Record-independent state of one evaluation grid, cached for the
         most recent grid: the float32 coordinates on the device, the
-        colatitude band (host float64 cap transform) and the FoV mask (host
-        half-space test) on the device.  Called with a non-empty grid; each
+        colatitude band (host float64 cap transform; None for a model
+        without Legendre tables) and the FoV mask (host half-space test) on
+        the device.  Called with a non-empty grid; each
         step is a ``self.timer`` phase."""
         with self.timer.phase("grid_hash"):
             key = self._grid_key(gdlat, gdlon, gdalt)
         g = self._prepared_grid
         if g is None or g["key"] != key:
             shape = np.shape(gdlat)
-            with self.timer.phase("grid_band"):
-                _, t, _ = coords.np_geodetic_to_cap(
-                    np.asarray(gdlat, np.float64).ravel(),
-                    np.asarray(gdlon, np.float64).ravel(),
-                    np.asarray(gdalt, np.float64).ravel(),
-                    self.model.latcp, self.model.loncp)
-                band = (float(t.min()), float(t.max()))
+            band = None
+            if hasattr(self.model, "tables"):  # band-limited (sphharmlag)
+                with self.timer.phase("grid_band"):
+                    _, t, _ = coords.np_geodetic_to_cap(
+                        np.asarray(gdlat, np.float64).ravel(),
+                        np.asarray(gdlon, np.float64).ravel(),
+                        np.asarray(gdalt, np.float64).ravel(),
+                        self.model.latcp, self.model.loncp)
+                    band = (float(t.min()), float(t.max()))
             g = {"key": key, "shape": shape, "band": band, "inside": None}
             with self.timer.phase("grid_upload"):
                 g["lat"], g["lon"], g["alt"] = (
@@ -201,13 +205,15 @@ class Estimate:
         return g
 
     def _band_evaluator(self, band):
-        """Evaluator covering the band, reused while a new band fits inside
-        the cached one."""
-        lo, hi = band
+        """Evaluator covering the band (None for a model without one, such
+        as radbasfun), reused while a new band fits inside the cached
+        one."""
+        lo, hi = band if band is not None else (0.0, float(np.pi))
         ev = self._grid_ev
         if ev is None or not (ev.theta_lo <= lo and hi <= ev.theta_hi):
-            self.model.ensure_theta_domain(hi)
-            ev = make_grid_evaluator(self.model, (lo, hi), device=self.device)
+            if band is not None:
+                self.model.ensure_theta_domain(hi)
+            ev = make_grid_evaluator(self.model, band, device=self.device)
             self._grid_ev = ev
         return ev
 
@@ -224,7 +230,8 @@ class Estimate:
         times: sequence of datetimes.  Returns float32 [ntimes, *grid.shape]
         (an empty array for no times or an empty grid).  Records run in
         chunks whose [chunk, npoints] float32 output stays <= 0.5 GB on the
-        device; each chunk is one kernel launch with the FoV mask fused."""
+        device; each chunk is one kernel launch with the FoV mask fused
+        (sphharmlag) or one pass of the RBF evaluator (radbasfun)."""
         times = list(times)
         shape = np.shape(gdlat)
         npts = int(np.prod(shape))

@@ -12,7 +12,11 @@ REGULARIZATION_PROFILE (a Chapman-profile tau pull, ``_reg_taus``),
 TIME_COUPLING (a joint re-solve of the day, ops/timejoint.py) and
 TIME_SMOOTHING (a time spline of the coefficients, ops/timesmooth.py,
 stored under /TimeFit); ``calc_coeffs_multiparam`` fits several parameters
-in one record stream.
+in one record stream.  In a torch.distributed world of several processes,
+or when [TPU] MESH_RECORDS / MESH_POINTS ask for more than one, each chunk
+is fitted by parallel/fit.fit_records_sharded instead (records over the
+mesh's rows, points over a row's processes), every process holds the
+results and process 0 writes the file.
 
 Attribute parity: configfile, regularization_list, reg_method, filename,
 outputfilename, param, errlim, chi2lim, goodfitcode, model_name, model,
@@ -183,7 +187,14 @@ class Interpolate:
         """Fit every record in the file (optionally a time window), batched
         in record chunks (reference flow, interpolate.py:472-579).  With
         resume=True and an existing partial output file, completed chunks
-        are skipped."""
+        are skipped; only a one-process run resumes (process 0 alone holds
+        the file, so the others could not know where to start)."""
+        from .parallel.mesh import world
+
+        if resume and world()[1] > 1:
+            raise ValueError("resume=True needs a one-process run: in a "
+                             "torch.distributed world only process 0 holds "
+                             "the output file")
         reg_mats, reg_taus, method, manual_params = self._fit_setup()
         names = self.regularization_list
 
@@ -204,7 +215,7 @@ class Interpolate:
         writer = None
         start0 = 0
         self._flushed_output = None
-        if self.outputfilename:
+        if self.outputfilename and _is_writer():
             # per-chunk flush whenever an output file is configured: the run
             # is checkpointed, and saveh5() becomes a metadata-only finalize
             writer = self._make_writer(nrec, fresh=not resume)
@@ -309,6 +320,15 @@ class Interpolate:
             if names:
                 rp_all[:start0] = writer.f["FitParams/reg_params"][:start0]
 
+        mesh = self._mesh()
+
+        def finish(s, e, res):
+            C_all[s:e], dC_all[s:e], c2_all[s:e], rp_all[s:e] = (
+                t.cpu().numpy() for t in res)
+            if writer is not None:
+                writer.write_chunk(s, utime[s:e], C_all[s:e], dC_all[s:e],
+                                   c2_all[s:e], rp_all[s:e])
+
         with self.timer.phase("fit_records"):
             # fit-constant inputs go to the device once
             A_d = torch.as_tensor(A_np, dtype=torch.float64, device=self.device)
@@ -318,6 +338,19 @@ class Interpolate:
             # R's eigenbases (the exact searches' alpha = 1 side) once a run
             reg_eig = (reg_mats_eig(R_d) if len(names) and mode == "exact"
                        and method in ("chi2", "gcv") else None)
+            starts = list(range(start0, nrec, chunk))
+            if mesh is not None:
+                # records over the mesh's rows, points over a row's ranks
+                from .parallel.fit import fit_records_sharded
+
+                for s in starts:
+                    e = min(s + chunk, nrec)
+                    finish(s, e, fit_records_sharded(
+                        value[s:e], error[s:e], A_d, R_d, mesh, method=method,
+                        manual_params=manual_params, regparam_mode=mode,
+                        reg_taus=reg_taus, device=self.device,
+                        reg_eig=reg_eig))
+                return C_all, dC_all, c2_all, rp_all
             cuda = self.device.type == "cuda"
             side = torch.cuda.Stream(self.device) if cuda else None
             if cuda:
@@ -332,7 +365,6 @@ class Interpolate:
                         p["event"] = side.record_event()
                 return p
 
-            starts = list(range(start0, nrec, chunk))
             with ThreadPoolExecutor(1) as pool:
                 ahead = (pool.submit(stage, starts[0], min(starts[0] + chunk,
                                                            nrec))
@@ -348,18 +380,26 @@ class Interpolate:
                         main.wait_event(prepared.pop("event"))
                         for t in _tensors(prepared):
                             t.record_stream(main)
-                    res = fit_records(
+                    finish(s, e, fit_records(
                         value[s:e], error[s:e], A_d, R_d, method=method,
                         manual_params=manual_params, regparam_mode=mode,
                         device=self.device, reg_eig=reg_eig,
-                        reg_taus=reg_taus, prepared=prepared)
-                    C_all[s:e], dC_all[s:e], c2_all[s:e], rp_all[s:e] = (
-                        t.cpu().numpy() for t in res)
-                    if writer is not None:
-                        writer.write_chunk(s, utime[s:e], C_all[s:e],
-                                           dC_all[s:e], c2_all[s:e],
-                                           rp_all[s:e])
+                        reg_taus=reg_taus, prepared=prepared))
         return C_all, dC_all, c2_all, rp_all
+
+    def _mesh(self):
+        """The (records, points) mesh of a sharded fit, or None for the
+        plain one-process fit: sharded when the torch.distributed world has
+        more than one process or [TPU] MESH_RECORDS / MESH_POINTS ask for
+        more than one (a layout larger than the world raises)."""
+        from .parallel.mesh import world
+
+        tpu = self.config.tpu
+        if world()[1] > 1 or tpu.mesh_records > 1 or tpu.mesh_points > 1:
+            from .parallel.distributed import make_global_mesh
+
+            return make_global_mesh(tpu.mesh_records, tpu.mesh_points)
+        return None
 
     def calc_coeffs_multiparam(self, params, starttime=None, endtime=None):
         """Fits of several parameters (e.g. ['dens', 'temp_e']) in one
@@ -440,6 +480,8 @@ class Interpolate:
         the whole file.  Mutating Coeffs/Covariance between calc_coeffs and
         saveh5 voids the in-place path: set self._flushed_output = None
         first to force a full rewrite."""
+        if not _is_writer():
+            return  # every process holds the results; process 0 writes
         timefit = getattr(self, "timefit", None)
         if getattr(self, "_flushed_output", None) == self.outputfilename \
                 and self.outputfilename:
@@ -466,6 +508,14 @@ class Interpolate:
             reg_params=self.reg_params,
             timefit=timefit,
         )
+
+
+def _is_writer():
+    """Whether this process writes the output file: process 0 of a
+    torch.distributed world, or the only process."""
+    from .parallel.mesh import world
+
+    return world()[0] == 0
 
 
 def _tensors(tree):

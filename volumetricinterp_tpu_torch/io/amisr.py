@@ -3,7 +3,8 @@
 ``qc_datasets`` applies the reference reader's selection and QC
 (interpolate.py:582-667) to any mapping from HDF5 paths to arrays: an open
 h5py file, or the in-memory dict of ``io.synth.synthetic_amisr_datasets``.
-``read_datafile`` opens a file with h5py and calls it.
+``read_datafile`` opens a file with h5py and calls it.  ``beam_indices``
+and ``beam_index`` give each point's beam number the same two ways.
 
 * PARAM routing: 'dens' -> /FittedParams/{Ne,dNe}; otherwise
   '<quantity>_<species>' indexes /FittedParams/{Fits,Errors}[..., m, i]
@@ -82,3 +83,23 @@ def read_datafile(filename, param, errlim, chi2lim, goodfitcode):
 
     with h5py.File(filename, "r") as f:
         return qc_datasets(f, param, errlim, chi2lim, goodfitcode)
+
+
+def beam_indices(src):
+    """Per-point beam index aligned with qc_datasets' point axis, from a
+    mapping of HDF5 paths to arrays.  AMISR geometry arrays are [nbeam,
+    nrange]; the reader flattens them and drops NaN-coordinate points, and
+    the beam row index goes through the same flatten and filter (the
+    leave-one-beam-out sweep, sweep.py, groups points by it)."""
+    alt = np.asarray(src["/Geomag/Altitude"][:])
+    nbeam, nrange = alt.shape
+    idx = np.repeat(np.arange(nbeam), nrange)
+    return idx[np.isfinite(alt.flatten())]
+
+
+def beam_index(filename):
+    """``beam_indices`` of a processed-AMISR HDF5 file."""
+    import h5py
+
+    with h5py.File(filename, "r") as f:
+        return beam_indices(f)

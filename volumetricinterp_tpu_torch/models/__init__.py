@@ -2,8 +2,9 @@
 
 A model provides ``basis`` taking geodetic coordinates, an ``nbasis``
 attribute and an ``eval_reg_matricies`` dict (the reference's plugin
-contract, models/sphharmlag.py:11-15).  Only the sphharmlag model is
-ported so far.
+contract, models/sphharmlag.py:11-15): ``sphharmlag`` (the default, the
+spherical-cap-harmonic x Laguerre basis) or ``radbasfun`` (Gaussian radial
+basis functions, no regularization).
 """
 
 
@@ -13,7 +14,7 @@ def make_model(name: str, config):
 
         return Model(config)
     if name == "radbasfun":
-        raise NotImplementedError(
-            "the radbasfun model is not ported to the PyTorch package yet "
-            "(ROADMAP queue 1: radbasfun and series)")
+        from .radbasfun import Model
+
+        return Model(config)
     raise ValueError(f"unknown model {name!r}")

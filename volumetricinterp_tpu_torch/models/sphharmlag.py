@@ -11,7 +11,8 @@ does at :141 (P_nu^{-|m|} through the Gamma-ratio connection).
 
 This is the host half of ``volumetricinterp_tpu/models/sphharmlag.py``:
 the design matrix is evaluated in exact float64 numpy from Chebyshev
-tables of P_nu^m (tables.py), and the regularization matrices come from
+tables of P_nu^m (tables.py), or with BASIS_IMPL = series from the direct
+hypergeometric series (special.lpmv, float64 torch), and the regularization matrices come from
 separable 1-D integral tables combined by outer products, in 'quad' mode
 (host scipy.integrate.quad, identical to the reference) or 'gauss' mode
 (fixed Gauss rules).  Both give bit-identical results to the JAX package,
@@ -24,6 +25,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 from ..config import Config
 from ..constants import RE
@@ -46,10 +48,10 @@ class Model:
         else:
             cfg = Config.from_file(config_file)
         self.config = cfg
-        if cfg.tpu.basis_impl != "table":
-            raise NotImplementedError(
-                f"BASIS_IMPL = {cfg.tpu.basis_impl!r} is not ported to the "
-                "PyTorch package yet (ROADMAP queue 1: radbasfun and series)")
+        if cfg.tpu.basis_impl not in ("table", "series"):
+            raise ValueError(f"unknown BASIS_IMPL {cfg.tpu.basis_impl!r} "
+                             "(table or series)")
+        self.basis_impl = cfg.tpu.basis_impl
 
         self.maxk = cfg.model.maxk
         self.maxl = cfg.model.maxl
@@ -166,16 +168,31 @@ class Model:
         mb = np.arange(self.maxl, dtype=np.float64)
         return np.cos(p[:, None] * mb[None, :]), np.sin(p[:, None] * mb[None, :])
 
+    def _series_legendre(self, t):
+        """P_nu^m columns [npts, nbasis] by special.lpmv's hypergeometric
+        series, one call per (l, mbar) pair, in float64 torch on the host
+        (BASIS_IMPL = series: the table-free path of the JAX package's
+        _design_core, volumetricinterp_tpu/models/sphharmlag.py:231-243)."""
+        x = torch.as_tensor(np.cos(t))
+        cols = [special.lpmv(mbar, float(nu_of_l(l, self.cap_lim)), x)
+                for l in range(self.maxl) for mbar in range(l + 1)]
+        pair = self._l * (self._l + 1) // 2 + self._mbar
+        return torch.stack(cols, dim=-1).numpy()[:, pair]
+
     def _design_np(self, z, t, p):
         """Host float64 design matrix [npoints, nbasis] at cap coordinates:
-        Chebyshev Clenshaw for the Legendre part, Laguerre recurrence for
-        the radial part, cos/sin(m phi) for the azimuth."""
+        Chebyshev Clenshaw (or, with BASIS_IMPL = series, the direct series)
+        for the Legendre part, Laguerre recurrence for the radial part,
+        cos/sin(m phi) for the azimuth."""
         from ..tables import np_cheb_clenshaw
 
-        tbl = self.tables
-        u = 2.0 * t / tbl.theta_max - 1.0
-        P = np_cheb_clenshaw(u, tbl.coef_np)
-        Pn = P[:, self._col_0] * self._negm_scale[None, :]
+        if self.basis_impl == "series":
+            P = self._series_legendre(t)
+        else:
+            tbl = self.tables
+            u = 2.0 * t / tbl.theta_max - 1.0
+            P = np_cheb_clenshaw(u, tbl.coef_np)[:, self._col_0]
+        Pn = P * self._negm_scale[None, :]
 
         lag = special.np_laguerre_all(self.maxk - 1, z)
         radial = np.exp(-0.5 * z)[:, None] * lag
@@ -237,7 +254,8 @@ class Model:
     def grad_basis(self, gdlat, gdlon, gdalt):
         """Gradient of each basis function (reference sphharmlag.py:148-184)
         at geodetic points, host float64: [..., 3, nbasis] in cap
-        components (z-hat, theta-hat, phi-hat)."""
+        components (z-hat, theta-hat, phi-hat).  Always from the tables,
+        whatever BASIS_IMPL says, as in the JAX package."""
         shape = np.shape(gdlat)
         z, t, p = self._coords_for(gdlat, gdlon, gdalt)
         return self._grad_np(z, t, p).reshape(shape + (3, self.nbasis))

@@ -56,15 +56,19 @@ def atwa_eig(AtWA):
     """AtWA's normalized eigendecomposition (w, V, s) for the 'exact'
     searches, in LAPACK float64 on the host CPU (solve.host_eigh), on the
     card as on the CPU: it decides the chi2 search's floor, and the whole
-    search and the final solve inherit its basis (PERF.md)."""
+    search and the final solve inherit its basis (PERF.md).  A fit without
+    regularization matrices (radbasfun) is AtWA's cutoff solve itself, so
+    it takes this decomposition too."""
     return normalized_eigh(AtWA, host_eigh)
 
 
 def takes_atwa_eig(method, regparam_mode, nreg):
-    """Whether fit_records' search takes ``atwa_eig`` (the 'exact' chi2 and
-    every GCV search but 'fast')."""
-    return (nreg > 0 and method != "manual" and regparam_mode != "fast"
-            and not (regparam_mode == "exact_grid" and method == "chi2"))
+    """Whether fit_records takes ``atwa_eig``: the 'exact' chi2 and every
+    GCV search but 'fast', and the final solve of a fit with no
+    regularization matrix."""
+    return nreg == 0 or (
+        method != "manual" and regparam_mode != "fast"
+        and not (regparam_mode == "exact_grid" and method == "chi2"))
 
 
 def prepare_chunk(values, errors, A, method, regparam_mode, nreg, device):
@@ -83,7 +87,8 @@ def prepare_chunk(values, errors, A, method, regparam_mode, nreg, device):
 
 def fit_records(values, errors, A, reg_mats, method: str = "chi2",
                 manual_params=None, regparam_mode: str = "exact",
-                device="cuda", reg_eig=None, reg_taus=None, prepared=None):
+                device="cuda", reg_eig=None, reg_taus=None, prepared=None,
+                point_sum=None):
     """Batched fit of a record block.
 
     values/errors: [nrec, npoints] (NaN value = no data); A: [npoints,
@@ -93,6 +98,9 @@ def fit_records(values, errors, A, reg_mats, method: str = "chi2",
     of reg_mats, computed here when not given.  reg_taus: [nreg, nbasis]
     tau vectors or None.  prepared: ``prepare_chunk`` of these records
     (values and errors are then not read), computed here when not given.
+    point_sum: for a fit whose points are sharded over processes
+    (parallel/fit.py), the sum over the shards of a GCV objective computed
+    on this process's points; prepared then holds the whole statistics.
 
     Returns tensors on ``device``: C [nrec, nb], dC [nrec, nb, nb],
     chi2 [nrec], reg_params [nrec, nreg] in the reference's RAW alpha
@@ -142,7 +150,8 @@ def fit_records(values, errors, A, reg_mats, method: str = "chi2",
         else:
             b, W, mask = masked_points(values, errors)
             searches = [regparam.gcv_reg_param_fast(
-                AtWb, R, A, b, W, mask, eig_raw) for R in reg_mats]
+                AtWb, R, A, b, W, mask, eig_raw, point_sum)
+                for R in reg_mats]
         log_alphas = torch.stack(searches, dim=-1)
     else:
         eigA = prepared["eigA"]
@@ -150,8 +159,8 @@ def fit_records(values, errors, A, reg_mats, method: str = "chi2",
         if method == "gcv":
             b, W, mask = masked_points(values, errors)
             searches = [regparam.gcv_reg_param_x(
-                AtWA, AtWb, reg_mats[i], A, b, W, mask, eigA, (VR[i], sR[i]))
-                for i in range(nreg)]
+                AtWA, AtWb, reg_mats[i], A, b, W, mask, eigA, (VR[i], sR[i]),
+                point_sum) for i in range(nreg)]
         elif nreg == 1:
             root, anchor, chi2_fb = regparam.chi2_reg_param(
                 AtWA, AtWb, btWb, N, reg_mats[0], eigA, (VR[0], sR[0]),
@@ -176,7 +185,8 @@ def fit_records(values, errors, A, reg_mats, method: str = "chi2",
         chi2 = torch.where(neg, chi2_fb, chi2)
     else:
         C, dC, chi2 = final_solve(AtWA, AtWb, btWb, reg_mats, log_alphas,
-                                  reg_taus)
+                                  reg_taus,
+                                  eig=prepared["eigA"] if nreg == 0 else None)
 
     # NaN-fill failed records (interpolate.py:557-563)
     C = torch.where(bad[:, None], float("nan"), C)

@@ -455,6 +455,11 @@ def _loo_sum(yhat, h, b, W, mask):
     return (r * r * W).sum(-1)
 
 
+def _summed(obj, point_sum):
+    """The objective summed over point shards (point_sum), or as it is."""
+    return obj if point_sum is None else point_sum(obj)
+
+
 def gcv_objective_anchored(a_log, bundle, b, W, mask):
     """GCV objective at 10^a_log [B, K] from a basis bundle (the float64
     path of gcv_objective_anchored, regparam.py:689-767, keep_resolve
@@ -489,13 +494,17 @@ def gcv_objective_anchored(a_log, bundle, b, W, mask):
     return _loo_sum(yhat / s, W[:, None] * h / s, b, W, mask)
 
 
-def gcv_reg_param_x(AtWA, AtWb, R, A, b, W, mask, eigA, eigR):
+def gcv_reg_param_x(AtWA, AtWb, R, A, b, W, mask, eigA, eigR,
+                    point_sum=None):
     """GCV regularization parameter, 'exact' mode (the float64 path of
     gcv_reg_param_x, regparam.py:770-875): Nelder-Mead from log10 alpha =
     -20 over the anchored objective, each evaluation on AtWA's basis
     (data-dominant alphas) or R's (alpha sR >= sA), plain scipy tolerances.
-    eigA: (w, V, s) of AtWA; eigR: (V, s) of R.  Returns LOG10(alpha) [B],
-    NaN where Nelder-Mead does not converge (interpolate.py:292-293)."""
+    eigA: (w, V, s) of AtWA; eigR: (V, s) of R.  point_sum: None, or the
+    sum over point shards of an objective computed on this process's
+    points (A, b, W, mask hold one shard; parallel/fit.py).  Returns
+    LOG10(alpha) [B], NaN where Nelder-Mead does not converge
+    (interpolate.py:292-293)."""
     _, VA, sA = eigA
     VR, sR = eigR
     bun_A = gcv_basis_bundle(VA, AtWA, R, AtWb, A)
@@ -505,17 +514,18 @@ def gcv_reg_param_x(AtWA, AtWb, R, A, b, W, mask, eigA, eigR):
     def obj(x):
         oA = gcv_objective_anchored(x, bun_A, b, W, mask)
         oR = gcv_objective_anchored(x, bun_R, b, W, mask)
-        return torch.where(x >= thresh, oR, oA)
+        return _summed(torch.where(x >= thresh, oR, oA), point_sum)
 
     x, ok = nelder_mead_1d(obj, _full(AtWb, GCV_ALPHA0))
     return torch.where(ok, x, torch.full_like(x, float("nan")))
 
 
-def gcv_reg_param_fast(AtWb, R, A, b, W, mask, eig_AtWA):
+def gcv_reg_param_fast(AtWb, R, A, b, W, mask, eig_AtWA, point_sum=None):
     """GCV regularization parameter, 'fast' mode (gcv_reg_param with
     gcv_objective_fast, regparam.py:941-962, 1052-1070): the whitened
     objective, O(npoints nbasis) an evaluation, at the exact float64
-    10**a_log.  ``eig_AtWA``: (w, V) of AtWA, raw scale.  Returns
+    10**a_log.  ``eig_AtWA``: (w, V) of AtWA, raw scale; point_sum as in
+    gcv_reg_param_x.  Returns
     LOG10(alpha) [B], NaN where Nelder-Mead does not converge."""
     lam, Q, Binv = whiten_pencil(R, eig_AtWA)
     u = _mv(Q.transpose(-1, -2), _mv(Binv, AtWb))
@@ -526,7 +536,7 @@ def gcv_reg_param_fast(AtWb, R, A, b, W, mask, eig_AtWA):
         d = 1.0 / (1.0 + torch.pow(10.0, x)[..., None] * lam[:, None])
         yhat = (d * u[:, None]) @ Tt
         h = W[:, None] * (d @ T2t)
-        return _loo_sum(yhat, h, b, W, mask)
+        return _summed(_loo_sum(yhat, h, b, W, mask), point_sum)
 
     x, ok = nelder_mead_1d(obj, _full(AtWb, GCV_ALPHA0))
     return torch.where(ok, x, torch.full_like(x, float("nan")))

@@ -209,7 +209,8 @@ def cutoff_chi2(a, AtWA, AtWb, btWb, R):
     return (C * AC).sum(-1) - 2.0 * (C * AtWb).sum(-1) + btWb
 
 
-def final_solve(AtWA, AtWb, btWb, reg_mats, log_alphas, reg_taus=None):
+def final_solve(AtWA, AtWb, btWb, reg_mats, log_alphas, reg_taus=None,
+                eig=None):
     """Coefficients, covariance and chi^2 of a record batch's regularized
     fit (interpolate.py:432-469 with calccov=True, and the chi^2 of
     interpolate.py:569): the float64 branch of final_solve_x.
@@ -218,6 +219,8 @@ def final_solve(AtWA, AtWb, btWb, reg_mats, log_alphas, reg_taus=None):
     is alpha = 0); reg_taus: [nreg, nb] tau vectors or None (the rhs is then
     AtWb + sum alpha tau, and chi^2 gains sum alpha tau'C).  Records with a
     NaN alpha are solved at alpha = 0 here; the caller NaN-fills them.
+    eig: with no regularization matrix (X = AtWA), AtWA's ``normalized_eigh``
+    to use in place of decomposing X here.
     Returns (C [nrec, nb], dC [nrec, nb, nb], chi2 [nrec])."""
     n = AtWA.shape[-1]
     aR = torch.zeros_like(AtWA)
@@ -235,7 +238,10 @@ def final_solve(AtWA, AtWb, btWb, reg_mats, log_alphas, reg_taus=None):
     # decomposed: solve the identity there; the outputs come out NaN
     bad = ~torch.isfinite(X).all(-1).all(-1)
     eye = torch.eye(n, dtype=X.dtype, device=X.device)
-    w, V, s = normalized_eigh(torch.where(bad[:, None, None], eye, X))
+    if eig is not None and reg_mats.shape[0] == 0:
+        w, V, s = eig
+    else:
+        w, V, s = normalized_eigh(torch.where(bad[:, None, None], eye, X))
     Vt = V.transpose(-1, -2)
     ub = (Vt @ AtWb[..., None])[..., 0]
     u = ub if reg_taus is None else (Vt @ rhs[..., None])[..., 0]
