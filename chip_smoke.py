@@ -70,7 +70,22 @@ non-zero:
               (1,2), against the single-process results;
   9. busy     one 128-record chunk of the exact fit under
               utils/profiling.trace: the device's busy share of the traced
-              window.
+              window;
+ 10. api      the reference-API surface on the card: (a) the models'
+              device design path (tensor points, float64) at the production
+              order on 10^6 points of the config-4 FoV, sphharmlag basis
+              and grad_basis and the radbasfun basis (343 RBFs), each
+              within 1e-11 of every column's sup of the host float64 route,
+              with the seconds of both routes; (b) Estimate.check_hull on
+              phase 5's grid against phase 5's host mask (points may differ
+              only where the host's max_f d lies within 1e-12 x scale of
+              the threshold), its seconds cold and warm beside phase 5's
+              grid_hull seconds, and its peak device memory; (c)
+              Interpolate(device="cuda")'s eval_C (with calccov),
+              find_reg_param (chi2, gcv, manual) and chi2objfunct at three
+              alphas on a well-conditioned random problem (nbasis 144, 580
+              points) against tests/oracle/ref_impl.py (the GCV root stored
+              by scripts/api_oracle.py).
 Then a JSON line with the kernels, and last {"ok": true, "device": ...}.
 The coefficient file goes through h5py when it is installed; otherwise
 the same classes run on in-memory data (h5py: absent), as on the card,
@@ -80,6 +95,8 @@ and Validate's PNG is held on the CPU only (tests/test_torch_grad_validate.py).
 
 import contextlib
 import datetime as dt
+import hashlib
+import importlib.util
 import io
 import json
 import re
@@ -99,11 +116,13 @@ sys.path.insert(0, str(ROOT))
 from volumetricinterp_tpu_torch import Estimate, Interpolate  # noqa: E402
 from volumetricinterp_tpu_torch.cli import main as cli_main  # noqa: E402
 from volumetricinterp_tpu_torch.config import Config  # noqa: E402
-from volumetricinterp_tpu_torch.coords import np_geodetic_to_cap  # noqa: E402
+from volumetricinterp_tpu_torch.coords import (  # noqa: E402
+    np_geodetic2ecef, np_geodetic_to_cap)
 from volumetricinterp_tpu_torch.io.amisr import qc_datasets  # noqa: E402
 from volumetricinterp_tpu_torch.io.coeffs import load_coeff_file  # noqa: E402
 from volumetricinterp_tpu_torch.io.synth import (  # noqa: E402
     synthetic_amisr_datasets, write_synthetic_amisr)
+from volumetricinterp_tpu_torch.models import make_model  # noqa: E402
 from volumetricinterp_tpu_torch.models.sphharmlag import Model  # noqa: E402
 from volumetricinterp_tpu_torch.ops import fit as ops_fit  # noqa: E402
 from volumetricinterp_tpu_torch.ops import grid_eval_cuda, solve  # noqa: E402
@@ -113,6 +132,7 @@ from volumetricinterp_tpu_torch.ops.timesmooth import eval_time_spline  # noqa: 
 from volumetricinterp_tpu_torch.io.amisr import beam_indices  # noqa: E402
 from volumetricinterp_tpu_torch import parallel, sweep  # noqa: E402
 from volumetricinterp_tpu_torch.parallel import distributed  # noqa: E402
+from volumetricinterp_tpu_torch.utils.hull import hull_equations  # noqa: E402
 from volumetricinterp_tpu_torch.utils.profiling import trace  # noqa: E402
 
 EPOCH = dt.datetime(1970, 1, 1)
@@ -209,6 +229,21 @@ LOBO_ENTRY_MEDIAN_TOL = 0.25
 # the CPU), which the day bars bound
 SHARD_TOL = 1e-3
 SITE = (74.72955, 265.09424)  # the synthetic day's radar (io/synth.py)
+# phase 10: (a) the design path's points and bar; (b) the band around the
+# hull threshold where the host and the card may disagree; (c) the
+# reference-API problem of tests/test_api_surface.py (random design, weight
+# 100) at nbasis 144 and 580 points, with coefficients of scale API_TAU
+# under noise API_NOISE and the matrix I + 0.1 at a scale that puts the GCV
+# minimum two decades from the search's start (log10 alpha -17.85) and the
+# chi2 = nu root inside the bracket (-16.42)
+API_POINTS = 10**6
+DESIGN_TOL = 1e-11  # of each column's sup
+HULL_BAND = 1e-12  # of the hull's scale, max |facet offset|
+API_CFG = "[DEFAULT]\nREGULARIZATION_LIST = 0thorder\n" + MODEL_CFG
+API_NPTS, API_SEED = 580, 12
+API_TAU, API_NOISE, API_SCALE = 0.05, 0.07, 1e20
+API_EVAL_ALPHA = 1e-18
+API_ALPHAS = (-19.0, -17.0, -16.0)
 # NVIDIA's H100 SXM data sheet: float32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
@@ -915,7 +950,9 @@ def _eigh_seconds(batches, device):
 
 def phase_product(est, device="cuda", shape=(512, 512, 128), nrec=8,
                   finite_frac=FINITE_FRAC):
-    """The product half; returns the kernel launches it made."""
+    """The product half; returns the kernel launches it made, the host FoV
+    mask it built (numpy, the grid's shape) and the seconds of that host
+    test (the cold call's grid_hull phase), for phase 10."""
     times = [EPOCH + dt.timedelta(seconds=float(t))
              for t in np.mean(est.time, axis=1)[:nrec]]
     glat, glon, galt = grid(*shape)
@@ -925,6 +962,8 @@ def phase_product(est, device="cuda", shape=(512, 512, 128), nrec=8,
     cold_s = time.perf_counter() - t0
     launched = grid_eval_cuda.launches - before
     cold = est.timer.report()
+    # the host FoV mask of the grid, before grid_eval below prepares another
+    inside = est._prepared_grid["inside"].cpu().numpy().reshape(glat.shape)
     t0 = time.perf_counter()
     vol2 = est.evaluate_records(times, glat, glon, galt, check_hull=True)
     warm_s = time.perf_counter() - t0
@@ -967,7 +1006,8 @@ def phase_product(est, device="cuda", shape=(512, 512, 128), nrec=8,
           f"points ({int(fin.sum())} in the FoV): max {diff.max() / sup:.3e} "
           f"of sup, {np.max(diff / gross[fin]):.3e} of the gross sum; kernel "
           f"launches {launched}", flush=True)
-    return launched
+    return {"launched": launched, "inside": inside,
+            "grid_hull_s": cold["grid_hull"]}
 
 
 def _sync(device):
@@ -1407,6 +1447,213 @@ def phase_busy(device="cuda", day=DAY, nrec=128):
           f"Chrome trace {trace_mb:.1f} MiB", flush=True)
 
 
+def oracle_module():
+    """tests/oracle/ref_impl.py (NumPy/SciPy), loaded from its file."""
+    spec = importlib.util.spec_from_file_location(
+        "ref_impl", ROOT / "tests" / "oracle" / "ref_impl.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def api_problem(nb=144):
+    """Phase 10 (c)'s record: (A [580, nb], b, W, R) from API_SEED."""
+    rng = np.random.default_rng(API_SEED)
+    A = rng.normal(size=(API_NPTS, nb))
+    b = A @ (API_TAU * rng.normal(size=nb)) + API_NOISE * rng.normal(
+        size=API_NPTS)
+    W = np.full(API_NPTS, 100.0)
+    R = API_SCALE * (np.eye(nb) + 0.1 * np.ones((nb, nb)))
+    return A, b, W, R
+
+
+def api_digest(*arrays):
+    h = hashlib.sha1()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a, np.float64).tobytes())
+    return h.hexdigest()
+
+
+def _col_err(dev, host):
+    """max over columns of max_i |dev - host| / max_i |host| (columns: every
+    axis but the first), computed on dev's device."""
+    host = torch.as_tensor(host, device=dev.device)
+    sup = host.abs().amax(0)
+    err = (dev - host).abs().amax(0) / torch.where(sup > 0, sup,
+                                                   torch.ones_like(sup))
+    return float(err.max())
+
+
+def _host_route(fn, pts, threads=8):
+    """fn (a model's host float64 route) over ``threads`` point chunks at
+    once, concatenated: numpy's elementwise loops release the GIL."""
+    with ThreadPoolExecutor(threads) as pool:
+        return np.concatenate(list(pool.map(
+            fn, *(np.array_split(a, threads) for a in pts))))
+
+
+def phase_api_design(inside, device="cuda", npts=API_POINTS,
+                     shape=(512, 512, 128)):
+    """Phase 10 (a): the models' device design path against their host
+    float64 route (8 threads over point chunks) on npts points drawn from
+    the FoV of the grid.  The device route runs first: it sets the
+    Legendre tables' domain for both."""
+    glat, glon, galt = grid(*shape)
+    idx = np.random.default_rng(5).choice(np.flatnonzero(inside.ravel()),
+                                          npts, replace=False)
+    pts = [a.ravel()[idx] for a in (glat, glon, galt)]
+    pts_d = [torch.as_tensor(a, device=device) for a in pts]
+    sph = Model(Config.from_text(model_cfg()))
+    rbf = make_model("radbasfun", Config.from_text(RBF_CFG.format(raw="")))
+    for what, model, fn in (("sphharmlag basis", sph, "basis"),
+                            ("sphharmlag grad_basis", sph, "grad_basis"),
+                            ("radbasfun basis", rbf, "basis")):
+        secs = []
+        for _ in range(2):  # cold, warm
+            _sync(device)
+            t0 = time.perf_counter()
+            dev = getattr(model, fn)(*pts_d)
+            _sync(device)
+            secs.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        host = _host_route(getattr(model, fn), pts)
+        host_s = time.perf_counter() - t0
+        check(dev.dtype == torch.float64 and dev.device.type == device
+              and tuple(dev.shape) == host.shape,
+              f"{what}: {dev.dtype} {dev.device} {tuple(dev.shape)}")
+        err = _col_err(dev, host)
+        check(err <= DESIGN_TOL,
+              f"{what}: device route {err:.3e} of a column's sup from the "
+              f"host route (bar {DESIGN_TOL})")
+        print(f"phase 10 api (a) {what} on {npts} FoV points of the config-4 "
+              f"grid, shape {tuple(dev.shape)}: device route ({device} "
+              f"float64) cold {secs[0]:.3f} s warm {secs[1]:.3f} s, host "
+              f"float64 route {host_s:.3f} s on 8 threads; max |device - "
+              f"host| "
+              f"{err:.3e} of the column's sup (bar {DESIGN_TOL})", flush=True)
+        del host, dev
+
+
+def phase_api_hull(est, prod, device="cuda", shape=(512, 512, 128)):
+    """Phase 10 (b): Estimate.check_hull on phase 5's grid against phase
+    5's host mask; differences only in the band about the threshold."""
+    glat, glon, galt = grid(*shape)
+    _reset_peak(device)
+    secs, masks = [], []
+    for _ in range(2):  # cold, warm
+        t0 = time.perf_counter()
+        masks.append(est.check_hull(glat, glon, galt))
+        secs.append(time.perf_counter() - t0)
+    peak = _peak_gib(device)
+    mask, host = masks[0], prod["inside"]
+    check(isinstance(mask, np.ndarray) and mask.dtype == bool
+          and mask.shape == glat.shape, "check_hull: mask type or shape")
+    check(np.array_equal(mask, masks[1]), "check_hull: repeat call differs")
+    diff = np.flatnonzero(mask.ravel() != host.ravel())
+    # the host's max_f d at the points that differ, against the threshold
+    eqs = hull_equations(est.hull_vert)
+    scale = float(np.max(np.abs(eqs[:, 3])))
+    P = np.stack(np_geodetic2ecef(*(a.ravel()[diff] for a in
+                                    (glat, glon, galt))), axis=-1)
+    dmax = np.max(P @ eqs[:, :3].T + eqs[:, 3], axis=-1, initial=-np.inf)
+    n_band = int(np.sum(np.abs(dmax - 1e-8 * scale) <= HULL_BAND * scale))
+    check(n_band == diff.size,
+          f"check_hull: {diff.size - n_band} points differ from the host "
+          f"mask outside {HULL_BAND} x scale of the threshold")
+    print(f"phase 10 api (b) Estimate.check_hull({device}) on the config-4 "
+          f"grid ({glat.size} points, {eqs.shape[0]} facets, "
+          f"{int(mask.sum())} inside): cold {secs[0]:.3f} s, warm "
+          f"{secs[1]:.3f} s, against phase 5's host np_check_hull "
+          f"(grid_hull) {prod['grid_hull_s']:.3f} s; peak device memory "
+          f"{peak:.3f} GiB; {diff.size} points differ from the host mask, "
+          f"{n_band} of them within {HULL_BAND} x scale of the threshold",
+          flush=True)
+
+
+def phase_api_interpolate(device="cuda"):
+    """Phase 10 (c): Interpolate's reference-API methods on the card
+    against the NumPy/SciPy oracle, at the CPU test's tolerances
+    (tests/test_torch_api_surface.py)."""
+    ref = oracle_module()
+    A, b, W, R = api_problem()
+    stored = np.load(ROOT / "tests" / "oracle" / "api_surface_oracle.npz")
+    check(str(stored["digest"]) == api_digest(A, b, W, R),
+          "the API problem differs from the one the GCV oracle was run on")
+    interp = Interpolate(Config.from_text(API_CFG), device=device)
+    regs = {"0thorder": R}
+    head = f"phase 10 api (c) Interpolate(device={device!r})."
+
+    t0 = time.perf_counter()
+    C, dC = interp.eval_C(A, b, W, regs, {"0thorder": API_EVAL_ALPHA},
+                          calccov=True)
+    _sync(device)
+    secs = time.perf_counter() - t0
+    check(C.device.type == device and dC.device.type == device,
+          "eval_C: results not on the device")
+    C, dC = C.cpu().numpy(), dC.cpu().numpy()
+    C_o, dC_o = ref.oracle_eval_C(A, b, W, [R], [API_EVAL_ALPHA],
+                                  calccov=True)
+    check(np.allclose(C, C_o, rtol=1e-9, atol=1e-12 * np.abs(C_o).max())
+          and np.allclose(dC, dC_o, rtol=1e-8,
+                          atol=1e-11 * np.abs(dC_o).max()),
+          "eval_C: beyond rtol 1e-9 (C) / 1e-8 (dC) of oracle_eval_C")
+    print(f"{head}eval_C(calccov=True) at alpha {API_EVAL_ALPHA:g}, "
+          f"{API_NPTS} points x {A.shape[1]}: {secs:.3f} s; vs oracle_eval_C "
+          f"max |dC| {np.abs(C - C_o).max() / np.abs(C_o).max():.3e} of "
+          f"max |C|, max |d dC| {np.abs(dC - dC_o).max() / np.abs(dC_o).max():.3e}"
+          f" of max |dC|", flush=True)
+
+    t0 = time.perf_counter()
+    out = interp.find_reg_param(A, b, W, regs, method="chi2")["0thorder"]
+    secs = time.perf_counter() - t0
+    want = ref.oracle_chi2_param(A, b, W, [R], 0)
+    nu = ref._chi2_of(np.log10(want), A, b, W, [R], 0)  # the root's rung
+    c2 = ref._chi2_of(np.log10(out), A, b, W, [R], 0)
+    check(isinstance(out, float) and abs(c2 / nu - 1.0) <= 1e-5
+          and abs(out / want - 1.0) <= 2e-5,
+          f"find_reg_param chi2: {out!r} vs the oracle's {want!r}")
+    print(f"{head}find_reg_param('chi2'): {out:.10e} in {secs:.3f} s; "
+          f"oracle_chi2_param {want:.10e}: alpha rel {out / want - 1.0:.3e} "
+          f"(bar 2e-5), chi2(alpha) / nu - 1 {c2 / nu - 1.0:.3e} (bar 1e-5)",
+          flush=True)
+
+    t0 = time.perf_counter()
+    out = interp.find_reg_param(A, b, W, regs, method="gcv")["0thorder"]
+    secs = time.perf_counter() - t0
+    want = float(stored["gcv"])
+    dlog = abs(np.log10(out) - np.log10(want))
+    check(isinstance(out, float) and dlog < 5e-4,
+          f"find_reg_param gcv: {out!r} vs the oracle's {want!r}")
+    print(f"{head}find_reg_param('gcv'): log10 alpha {np.log10(out):.6f} in "
+          f"{secs:.3f} s; oracle_gcv_param (scripts/api_oracle.py) "
+          f"{np.log10(want):.6f}: |dlog10 alpha| {dlog:.3e} (bar 5e-4)",
+          flush=True)
+
+    out = interp.find_reg_param(A, b, W, regs, method="manual")
+    check(out == {"0thorder": 1.0e-23}, f"find_reg_param manual: {out}")
+    print(f"{head}find_reg_param('manual'): {out}", flush=True)
+
+    rels = []
+    for a in API_ALPHAS:
+        ours = interp.chi2objfunct(a, A, b, W, regs, nu=float(API_NPTS),
+                                   reg="0thorder")
+        want = ref._chi2_of(a, A, b, W, [R], 0) - API_NPTS
+        rels.append(abs(ours / want - 1.0))
+        check(isinstance(ours, float) and rels[-1] <= 1e-7,
+              f"chi2objfunct at {a}: {ours!r} vs the oracle's {want!r}")
+    print(f"{head}chi2objfunct at log10 alpha {API_ALPHAS}: rel to the "
+          f"oracle's chi2 - nu {', '.join(f'{r:.3e}' for r in rels)} "
+          f"(bar 1e-7)", flush=True)
+
+
+def phase_api(est, prod, device="cuda", npts=API_POINTS,
+              shape=(512, 512, 128)):
+    """Phase 10: the reference-API surface (a), (b), (c)."""
+    phase_api_design(prod["inside"], device, npts, shape)
+    phase_api_hull(est, prod, device, shape)
+    phase_api_interpolate(device)
+
+
 def _phases(times):
     return ", ".join(f"{k} {v:.3f} s" for k, v in times.items() if v > 0)
 
@@ -1425,12 +1672,15 @@ def main():
         phase_fit_fault(Path(tmp))
         phase_time_axis(Path(tmp))
         phase_fit_windows(Path(tmp))
-        phase_product(est)
-        del est
+        prod = phase_product(est)
+        # phase 10 needs the Estimate's hull, not the grid it holds on the
+        # card
+        est._prepared_grid = est._grid_ev = None
         phase_radbasfun()
         phase_sweep()
         phase_parallel(Path(tmp))
         phase_busy()
+        phase_api(est, prod)
     kernel["launches"] = grid_eval_cuda.launches
     check(kernel["launches"] > 0, "the main path never launched the kernel")
     print(json.dumps({"kernels": [kernel]}))

@@ -1,6 +1,8 @@
-"""The PyTorch port stands alone: it imports and runs its plain path in a
-process where jax (and, separately, h5py) cannot be imported, never imports
-the JAX package, and refuses a CUDA device it does not have."""
+"""The PyTorch port stands alone: it imports and runs its plain path (and
+the reference-API surface: Interpolate.eval_C, the device hull test,
+Model.design_from_ztp, Estimate.check_hull) in a process where jax (and,
+separately, h5py) cannot be imported, never imports the JAX package, and
+refuses a CUDA device it does not have."""
 
 import os
 import re
@@ -38,6 +40,8 @@ from volumetricinterp_tpu_torch.parallel.distributed import (
     initialize_distributed)
 from volumetricinterp_tpu_torch.sweep import lobo_cv
 from volumetricinterp_tpu_torch.utils.profiling import debug_mode, trace
+from volumetricinterp_tpu_torch.utils.hull import (
+    check_hull, compute_hull_vertices, hull_equations, np_check_hull)
 
 cfg = Config.from_text('''
 [DEFAULT]
@@ -81,15 +85,40 @@ with debug_mode():
     out = RBFGridEvaluator(rbf, device="cpu").eval_records(
         np.ones((1, 27)), lat, lon, alt).numpy()
 assert np.max(np.abs(out[0] - Ar.sum(-1))) < 5e-5 * np.max(Ar.sum(-1))
+psi = {{"0thorder": model.eval_psi()}}
+Cv = vt.Interpolate(cfg, device="cpu").eval_C(A, v[0], e[0] ** -2.0, psi,
+                                              {{"0thorder": 1e-23}})
+assert Cv.shape == (model.nbasis,) and torch.isfinite(Cv).all()
+zz, tt, pp = model.transform_coord(lat, lon, alt)
+Ad = model.design_from_ztp(*(torch.as_tensor(q) for q in (zz, tt, pp)))
+assert np.abs(Ad.numpy() - A.reshape(Ad.shape)).max() <= 1e-12 * np.abs(A).max()
+vert = compute_hull_vertices(lat, lon, alt)
+eqs = hull_equations(vert)
+inside = check_hull(eqs, lat, lon, alt, device="cpu", chunk=100).numpy()
+assert np.array_equal(inside, np_check_hull(eqs, lat, lon, alt))
+
+
+class MemEstimate(vt.Estimate):
+    def loadh5(self, filename=None):
+        self.Coeffs, self.Covariance = C.numpy(), dC.numpy()
+        self.time, self.hull_vert = ut, vert
+        self.config_file_text = cfg.raw_text
+        self.chi2, self.raw_filename, self.timefit = chi2.numpy(), None, None
+
+
+assert np.array_equal(MemEstimate(None, device="cpu").check_hull(lat, lon, alt),
+                      inside)
 for make in (lambda: GridEvaluator(model, (t.min(), t.max()), device="cuda"),
              lambda: RBFGridEvaluator(rbf, device="cuda"),
-             lambda: vt.Interpolate(cfg, device="cuda")):
+             lambda: vt.Interpolate(cfg, device="cuda"),
+             lambda: MemEstimate(None).check_hull(lat, lon, alt),
+             lambda: check_hull(eqs, lat, lon, alt)):
     try:
         make()
     except RuntimeError:
         pass
     else:
-        raise SystemExit("device='cuda' did not raise without CUDA")
+        raise SystemExit("the CUDA default did not raise without CUDA")
 assert not any(m == "jax" or m.startswith(("jax.", "volumetricinterp_tpu."))
                or m == "volumetricinterp_tpu" for m in sys.modules
                if sys.modules[m] is not None)

@@ -5,6 +5,9 @@ reference estimate.py:13-221 and the JAX package's Estimate).
   design matrix, A @ C, the FoV hull mask, with calcgrad the gradient
   G @ C in cap components, with calcerr the field error sqrt(a' dC a)
   (and with both the gradient's error).
+* ``check_hull`` is the FoV mask alone, in float64 on ``device``; the
+  point API and the dense-grid path take the host mask, as the JAX
+  package's do.
 * ``get_C`` takes the nearest record, interpolates linearly between two
   records (timeinterp=True), or evaluates the file's /TimeFit spline
   (timeinterp='spline', covariance from the nearest record).
@@ -28,6 +31,7 @@ from . import coords, models
 from .io.coeffs import load_coeff_file
 from .ops.grid_eval import make_grid_evaluator
 from .utils.device import check_device
+from .utils.hull import check_hull as hull_mask
 from .utils.hull import hull_equations
 from .utils.hull import np_check_hull as np_hull_mask
 from .utils.logging import PhaseTimer
@@ -119,6 +123,13 @@ class Estimate:
         """Cap-frame vectors (e.g. calcgrad's dP) at geodetic points rotated
         to ECEF components: Model.inverse_transform."""
         return self.model.inverse_transform(gdlat, gdlon, gdalt, vec)
+
+    def check_hull(self, lat0, lon0, alt0):
+        """Inside-FoV mask (reference estimate.py:153-178 semantics through
+        the half-space test, utils/hull.py), computed on ``self.device``;
+        a numpy bool array shaped like lat0."""
+        return hull_mask(self._hull_eqs, lat0, lon0, alt0,
+                         device=self.device).cpu().numpy()
 
     def get_C(self, t):
         """Coefficients for a requested time (reference estimate.py:180-221):

@@ -39,8 +39,9 @@ from . import models
 from .io.amisr import read_datafile
 from .io.coeffs import (IncrementalCoeffWriter, finalize_checkpoint,
                         save_coeff_file)
-from .ops.fit import fit_records, prepare_chunk, reg_mats_eig
+from .ops.fit import atwa_eig, fit_records, prepare_chunk, reg_mats_eig
 from .ops import regparam as regparam_mod
+from .ops.solve import cutoff_chi2, sym_pinv_apply
 from .utils.device import check_device
 from .utils.hull import compute_hull_vertices
 from .utils.logging import PhaseTimer, fit_quality_report, logger
@@ -77,6 +78,108 @@ class Interpolate:
         self.chi2lim = list(f.chi2lim)
         self.goodfitcode = list(f.goodfitcode)
         self.model_name = config.model.name
+
+    # ------------------------------------------------------------------
+    # reference-parity numerical methods (library surface), on self.device
+    # ------------------------------------------------------------------
+
+    def _record(self, A, b, W):
+        """One record's (A, b, W, mask) as float64 tensors on self.device,
+        b and W flat, mask = finite b, and its weighted statistics (AtWA,
+        AtWb, btWb, N): masked points count nothing (solve.py:99-112)."""
+        A, b, W = (torch.as_tensor(x, dtype=torch.float64,
+                                   device=self.device) for x in (A, b, W))
+        b, W = b.reshape(-1), W.reshape(-1)
+        mask = torch.isfinite(b)
+        Wm = torch.where(mask, W, torch.zeros_like(W))
+        bm = torch.where(mask, b, torch.zeros_like(b))
+        Aw = A * Wm[:, None]
+        stats = (A.T @ Aw, Aw.T @ bm, (Wm * bm * bm).sum(),
+                 mask.sum().to(A.dtype))
+        return (A, b, Wm, mask), stats
+
+    def _reg_matrix(self, reg_matrices, name):
+        return torch.as_tensor(reg_matrices[name], dtype=torch.float64,
+                               device=self.device)
+
+    def eval_C(self, A, b, W, reg_matrices, reg_params, calccov=False):
+        """Coefficients (and with calccov their covariance) of one record
+        at the given alphas (reference interpolate.py:432-469, dict-style
+        regularization arguments): X = AtWA + sum alpha R, C by the gelsd
+        cutoff solve, dC = pinv(X) AtWA pinv(X).  Tensors on self.device."""
+        _, (AtWA, AtWb, _, _) = self._record(A, b, W)
+        X = AtWA
+        for name in self.regularization_list:
+            X = X + float(reg_params[name]) * self._reg_matrix(reg_matrices,
+                                                               name)
+        C, H = sym_pinv_apply(X, AtWb)
+        if calccov:
+            return C, H @ AtWA @ H
+        return C
+
+    def find_reg_param(self, A, b, W, reg_matrices, method=None):
+        """Regularization parameter of one record for each regularization,
+        the others at zero (reference interpolate.py:97-147): a dict of
+        Python floats.  'chi2' is the exact chi2 = nu search (0.0 for the
+        too-smooth outcome), 'gcv' the exact leave-one-out search, 'manual'
+        the reference's constants, 'prompt' asks on stdin; NaN, with the
+        reference's warning, where the search fails."""
+        if method is None:
+            method = "chi2"
+        (A_t, b_t, Wm, mask), (AtWA, AtWb, btWb, N) = self._record(A, b, W)
+        eigA = None
+        out = {}
+        for name in self.regularization_list:
+            if method == "chi2":
+                R = self._reg_matrix(reg_matrices, name)
+                if eigA is None:
+                    eigA = atwa_eig(AtWA[None])
+                VR, sR = reg_mats_eig(R[None])
+                root = float(regparam_mod.chi2_reg_param(
+                    AtWA[None], AtWb[None], btWb[None], N[None], R, eigA,
+                    (VR[0], sR[0]))[0])
+                out[name] = 10.0 ** root if np.isfinite(root) else (
+                    0.0 if root == -np.inf else np.nan)
+            elif method == "gcv":
+                root = float(regparam_mod.gcv_reg_param(
+                    AtWA, AtWb, self._reg_matrix(reg_matrices, name), A_t,
+                    b_t, Wm, mask))
+                out[name] = 10.0 ** root if np.isfinite(root) else np.nan
+            elif method == "manual":
+                out[name] = regparam_mod.manual_reg_param(name)
+            elif method == "prompt":
+                out[name] = float(input(f"Enter {name} regularization parameter: "))
+            else:
+                raise ValueError(f"unknown regularization method {method!r}")
+            if np.isnan(out[name]):
+                logger.warning(
+                    "Could not find any roots to the objective function "
+                    "chi^2-nu in the range (1e-100,1). Returning NANs for "
+                    "regularization parameters."
+                )
+        return out
+
+    # the reference's per-method entry points (interpolate.py:152,263,353,
+    # 383), through find_reg_param
+    def chi2(self, A, b, W, reg_matrices, reg):
+        return self.find_reg_param(A, b, W, reg_matrices, method="chi2")[reg]
+
+    def gcv(self, A, b, W, reg_matrices, reg):
+        return self.find_reg_param(A, b, W, reg_matrices, method="gcv")[reg]
+
+    def manual(self, A, b, W, reg_matrices, reg):
+        return regparam_mod.manual_reg_param(reg)
+
+    def prompt(self, A, b, W, reg_matrices, reg):
+        return float(input(f"Enter {reg} regularization parameter: "))
+
+    def chi2objfunct(self, alpha, A, b, W, reg_matrices, nu, reg):
+        """chi^2(10^alpha) - nu of one record with only ``reg``
+        regularized, under the reference's cutoff solve
+        (interpolate.py:220-261); a Python float."""
+        _, (AtWA, AtWb, btWb, _) = self._record(A, b, W)
+        R = self._reg_matrix(reg_matrices, reg)
+        return float(cutoff_chi2(10.0**alpha, AtWA, AtWb, btWb, R)) - nu
 
     def compute_hull(self, lat, lon, alt):
         """Reference interpolate.py:409-426; sets self.hull_vert."""

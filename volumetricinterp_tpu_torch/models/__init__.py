@@ -7,6 +7,18 @@ spherical-cap-harmonic x Laguerre basis) or ``radbasfun`` (Gaussian radial
 basis functions, no regularization).
 """
 
+import importlib
+
+MODELS = ("sphharmlag", "radbasfun")
+
+
+def get_model_module(name: str):
+    """The module of model ``name`` in this package (the JAX package's
+    plugin lookup, models/__init__.py:14-15); an unknown name raises."""
+    if name not in MODELS:
+        raise ValueError(f"unknown model {name!r}")
+    return importlib.import_module("." + name, package=__name__)
+
 
 def make_model(name: str, config):
     if name == "sphharmlag":

@@ -9,15 +9,22 @@ Thebault nu(l) approximation at :101-115, and the cap coordinate transform
 at :324-359.  SIGNED m is passed to the Legendre function as the reference
 does at :141 (P_nu^{-|m|} through the Gamma-ratio connection).
 
-This is the host half of ``volumetricinterp_tpu/models/sphharmlag.py``:
-the design matrix is evaluated in exact float64 numpy from Chebyshev
-tables of P_nu^m (tables.py), or with BASIS_IMPL = series from the direct
-hypergeometric series (special.lpmv, float64 torch), and the regularization matrices come from
-separable 1-D integral tables combined by outer products, in 'quad' mode
-(host scipy.integrate.quad, identical to the reference) or 'gauss' mode
-(fixed Gauss rules).  Both give bit-identical results to the JAX package,
-which runs the same numpy code.  Dense grids are evaluated by
-ops/grid_eval.py, not here.
+The port of ``volumetricinterp_tpu/models/sphharmlag.py``.  ``basis`` and
+``grad_basis`` take two routes, as the JAX package's take one for concrete
+and one for traced inputs:
+
+* numpy points: the host route, exact float64 numpy from Chebyshev tables
+  of P_nu^m (tables.py), or with BASIS_IMPL = series from the direct
+  hypergeometric series (special.lpmv, float64 torch); bit-identical to
+  the JAX package, which runs the same numpy code;
+* torch tensor points: the device route, the same expressions in float64
+  torch on the points' device (``design_from_ztp`` / ``_design_core`` and
+  ``_grad_core``), the cap transform by coords.geodetic_to_cap.
+
+The regularization matrices come from separable 1-D integral tables
+combined by outer products, in 'quad' mode (host scipy.integrate.quad,
+identical to the reference) or 'gauss' mode (fixed Gauss rules).  Dense
+grids are evaluated by ops/grid_eval.py, not here.
 """
 
 from __future__ import annotations
@@ -63,6 +70,7 @@ class Model:
 
         self._quad_mode = cfg.tpu.quad_mode
         self._build_index_tables()
+        self._dev = {}  # the index tables as tensors, per device (_consts)
         # Default theta domain for the Legendre tables.  The reference's
         # transform rotates by +theta0 (docs/PARITY_NOTES.md #1), which maps
         # the cap CENTER to colatitude 2*theta0, so data colatitudes cluster
@@ -130,6 +138,54 @@ class Model:
         self._col_p1 = 3 * pair + 2
         self._is_cos = (m >= 0).astype(np.float64)
 
+    def _consts(self, device):
+        """The per-basis index and scale tables as tensors on ``device``."""
+        device = torch.device(device)
+        c = self._dev.get(device)
+        if c is None:
+            pair = self._l * (self._l + 1) // 2 + self._mbar
+            c = {name: torch.as_tensor(arr, device=device) for name, arr in (
+                ("k", self._k), ("mbar", self._mbar), ("pair", pair),
+                ("col_0", self._col_0), ("col_p1", self._col_p1),
+                ("negm", self._negm_scale), ("negm_p1", self._negm_scale_p1),
+                ("kvm", self._kvm), ("is_cos", self._is_cos),
+                ("m", self._m.astype(np.float64)),
+                ("mbar_f", self._mbar.astype(np.float64)), ("nu", self._nu))}
+            self._dev[device] = c
+        return c
+
+    # ------------------------------------------------------------------
+    # reference-parity helpers (sphharmlag.py:79-115, 263-321)
+    # ------------------------------------------------------------------
+
+    def basis_numbers(self, n):
+        k = n // (self.maxl**2)
+        r = n % (self.maxl**2)
+        l = np.floor(np.sqrt(r))
+        m = r - l * (l + 1)
+        return k, l, m
+
+    def nu(self, n):
+        _, l, _ = self.basis_numbers(n)
+        return (2 * l + 0.5) * np.pi / (2 * self.cap_lim) - 0.5
+
+    def Az(self, v, m, phi):
+        """K_vm trig(|m| phi), float64 torch (on phi's device for a tensor)."""
+        phi = torch.as_tensor(phi, dtype=torch.float64)
+        trig = torch.sin if m < 0 else torch.cos
+        return float(self.Kvm(v, abs(m))) * trig(abs(m) * phi)
+
+    def dAz(self, v, m, phi):
+        """d Az / d phi, float64 torch."""
+        phi = torch.as_tensor(phi, dtype=torch.float64)
+        kv = float(self.Kvm(v, abs(m)))
+        if m < 0:
+            return abs(m) * kv * torch.cos(abs(m) * phi)
+        return -1 * m * kv * torch.sin(abs(m) * phi)
+
+    def Kvm(self, v, m):
+        return special.kvm(v, int(m))
+
     def transform_coord(self, gdlat, gdlon, gdalt):
         """Geodetic -> (z, theta, phi) cap coordinates (sphharmlag.py:324-359),
         host float64."""
@@ -163,21 +219,68 @@ class Model:
             self.ensure_theta_domain(tmax)
         return z, t, p
 
+    def _coords_t(self, gdlat, gdlon, gdalt):
+        """Flat float64 cap coordinates (z, theta, phi) of tensor points, on
+        gdlat's device (the other two are moved there); widens the tables
+        if needed, as the host route does (one read of max theta)."""
+        dev = gdlat.device
+        lat, lon, alt = (torch.as_tensor(a, dtype=torch.float64,
+                                         device=dev).reshape(-1)
+                         for a in (gdlat, gdlon, gdalt))
+        z, t, cosp, sinp = coords.geodetic_to_cap(
+            lat, lon, alt, coords.cap_rotation(self.latcp, self.loncp))
+        tmax = float(t.max()) if t.numel() else 0.0
+        if np.isfinite(tmax):
+            self.ensure_theta_domain(tmax)
+        return z, t, torch.atan2(sinp, cosp)
+
     def _trig(self, p):
-        """(cos(m p), sin(m p)) [npts, maxl] for m = 0 .. maxl-1."""
+        """(cos(m p), sin(m p)) [npts, maxl] for m = 0 .. maxl-1, numpy or
+        torch as p is."""
+        if torch.is_tensor(p):
+            mb = torch.arange(self.maxl, dtype=p.dtype, device=p.device)
+            return torch.cos(p[:, None] * mb), torch.sin(p[:, None] * mb)
         mb = np.arange(self.maxl, dtype=np.float64)
         return np.cos(p[:, None] * mb[None, :]), np.sin(p[:, None] * mb[None, :])
 
-    def _series_legendre(self, t):
-        """P_nu^m columns [npts, nbasis] by special.lpmv's hypergeometric
-        series, one call per (l, mbar) pair, in float64 torch on the host
-        (BASIS_IMPL = series: the table-free path of the JAX package's
-        _design_core, volumetricinterp_tpu/models/sphharmlag.py:231-243)."""
-        x = torch.as_tensor(np.cos(t))
+    def _series_legendre(self, x):
+        """P_nu^m columns [npts, nbasis] at x = cos(theta), a float64
+        tensor, by special.lpmv's hypergeometric series, one call per
+        (l, mbar) pair, on x's device (BASIS_IMPL = series: the table-free
+        path of the JAX package's _design_core,
+        volumetricinterp_tpu/models/sphharmlag.py:231-243)."""
         cols = [special.lpmv(mbar, float(nu_of_l(l, self.cap_lim)), x)
                 for l in range(self.maxl) for mbar in range(l + 1)]
-        pair = self._l * (self._l + 1) // 2 + self._mbar
-        return torch.stack(cols, dim=-1).numpy()[:, pair]
+        return torch.stack(cols, dim=-1)[:, self._consts(x.device)["pair"]]
+
+    def design_from_ztp(self, z, t, p, tables=None):
+        """A[npoints, nbasis] from cap coordinates, float64 torch on the
+        device of z (arrays go to the CPU): the device route's core."""
+        tbl = self.tables if tables is None else tables
+        return self._design_core(z, t, p, tbl.coef_np, tbl.theta_max)
+
+    def _design_core(self, z, t, p, coef, theta_max):
+        """The torch design matrix: the Legendre part by Clenshaw on the
+        tables (or the series), the Laguerre recurrence for the radial
+        part, cos/sin(m phi) for the azimuth (the JAX package's
+        _design_core, volumetricinterp_tpu/models/sphharmlag.py:224-261)."""
+        from ..tables import cheb_clenshaw
+
+        z = torch.as_tensor(z, dtype=torch.float64).reshape(-1)
+        t, p = (torch.as_tensor(a, dtype=torch.float64,
+                                device=z.device).reshape(-1) for a in (t, p))
+        c = self._consts(z.device)
+        if self.basis_impl == "series":
+            Pn = self._series_legendre(torch.cos(t)) * c["negm"]
+        else:
+            P = cheb_clenshaw(2.0 * t / theta_max - 1.0, coef)
+            Pn = P[:, c["col_0"]] * c["negm"]
+        radial = torch.exp(-0.5 * z)[:, None] * special.laguerre_all(
+            self.maxk - 1, z)
+        cosm, sinm = self._trig(p)
+        trig = (cosm[:, c["mbar"]] * c["is_cos"]
+                + sinm[:, c["mbar"]] * (1.0 - c["is_cos"]))
+        return radial[:, c["k"]] * (c["kvm"] * trig) * Pn
 
     def _design_np(self, z, t, p):
         """Host float64 design matrix [npoints, nbasis] at cap coordinates:
@@ -187,7 +290,7 @@ class Model:
         from ..tables import np_cheb_clenshaw
 
         if self.basis_impl == "series":
-            P = self._series_legendre(t)
+            P = self._series_legendre(torch.as_tensor(np.cos(t))).numpy()
         else:
             tbl = self.tables
             u = 2.0 * t / tbl.theta_max - 1.0
@@ -206,8 +309,12 @@ class Model:
 
     def basis(self, gdlat, gdlon, gdalt):
         """A[..., nbasis] at geodetic points (reference sphharmlag.py:118-145),
-        shape-preserving over the input dimensionality, host float64."""
-        shape = np.shape(gdlat)
+        shape-preserving over the input dimensionality: host float64 numpy
+        for numpy points, float64 torch on gdlat's device for a tensor."""
+        shape = tuple(np.shape(gdlat))
+        if torch.is_tensor(gdlat):
+            z, t, p = self._coords_t(gdlat, gdlon, gdalt)
+            return self.design_from_ztp(z, t, p).reshape(shape + (self.nbasis,))
         z, t, p = self._coords_for(gdlat, gdlon, gdalt)
         return self._design_np(z, t, p).reshape(shape + (self.nbasis,))
 
@@ -253,12 +360,53 @@ class Model:
 
     def grad_basis(self, gdlat, gdlon, gdalt):
         """Gradient of each basis function (reference sphharmlag.py:148-184)
-        at geodetic points, host float64: [..., 3, nbasis] in cap
-        components (z-hat, theta-hat, phi-hat).  Always from the tables,
+        at geodetic points: [..., 3, nbasis] in cap components (z-hat,
+        theta-hat, phi-hat), host float64 numpy for numpy points, float64
+        torch on gdlat's device for a tensor.  Always from the tables,
         whatever BASIS_IMPL says, as in the JAX package."""
-        shape = np.shape(gdlat)
+        shape = tuple(np.shape(gdlat))
+        if torch.is_tensor(gdlat):
+            z, t, p = self._coords_t(gdlat, gdlon, gdalt)
+            G = self._grad_core(z, t, p, self.tables.coef_np,
+                                self.tables.theta_max)
+            return G.reshape(shape + (3, self.nbasis))
         z, t, p = self._coords_for(gdlat, gdlon, gdalt)
         return self._grad_np(z, t, p).reshape(shape + (3, self.nbasis))
+
+    def _grad_core(self, z, t, p, coef, theta_max):
+        """The torch twin of _grad_np on z's device (the JAX package's
+        _grad_core, volumetricinterp_tpu/models/sphharmlag.py:398-448)."""
+        from ..tables import cheb_clenshaw
+
+        c = self._consts(z.device)
+        x, y, e = torch.cos(t), torch.sin(t), torch.exp(-0.5 * z)
+        P = cheb_clenshaw(2.0 * t / theta_max - 1.0, coef)
+        Pmv = P[:, c["col_0"]] * c["negm"]
+        Pmv1 = P[:, c["col_p1"]] * c["negm_p1"]
+
+        L0 = special.laguerre_all(self.maxk - 1, z)[:, c["k"]]
+        # L^1_{k-1}, indexed by k (L^1_{-1} = 0)
+        lag1 = special.laguerre_all(max(self.maxk - 2, 0), z, alpha=1.0)
+        L1 = torch.cat([torch.zeros_like(z)[:, None], lag1],
+                       dim=-1)[:, c["k"]]
+
+        cosm, sinm = self._trig(p)
+        cos_b, sin_b = cosm[:, c["mbar"]], sinm[:, c["mbar"]]
+        trig = cos_b * c["is_cos"] + sin_b * (1.0 - c["is_cos"])
+        dtrig = (-c["m"] * sin_b * c["is_cos"]
+                 + c["mbar_f"] * cos_b * (1.0 - c["is_cos"]))
+        A_az = c["kvm"] * trig
+        dA_az = c["kvm"] * dtrig
+
+        v = c["nu"][None, :]
+        msgn = c["m"][None, :]
+        denom = (y * (z / 100.0 + 1.0) * RE)[:, None]
+        zhat = -0.5 * e[:, None] * (L0 + 2.0 * L1) * Pmv * A_az * 100.0 / RE
+        that = (e[:, None] * L0
+                * (-(v + 1.0) * x[:, None] * Pmv + (v - msgn + 1.0) * Pmv1)
+                * A_az / denom)
+        phat = e[:, None] * L0 * Pmv * dA_az / denom
+        return torch.stack([zhat, that, phat], dim=-2)
 
     def inverse_transform(self, gdlat, gdlon, gdalt, vec):
         """Vectors in cap-frame spherical components (r-hat, theta-hat,

@@ -34,6 +34,7 @@ import torch
 from . import regparam
 from .solve import (final_solve, final_solve_anchor, host_eigh,
                     masked_points, normalized_eigh, suff_stats)
+from ..utils.device import check_device
 
 METHODS = ("chi2", "gcv", "manual")
 REGPARAM_MODES = ("exact", "exact_grid", "fast")
@@ -41,6 +42,17 @@ REGPARAM_MODES = ("exact", "exact_grid", "fast")
 # import (chip_smoke.py reads it); one host read a record batch, after the
 # search
 negative_chi2_reports = 0
+
+
+def record_stats(values, errors, A, device="cuda"):
+    """Masked sufficient statistics (AtWA, AtWb, btWb, N) of one record
+    (NaN value = zero weight), float64 on ``device``
+    (ops/fit.py:41-47)."""
+    device = check_device(device)
+    values, errors, A = (torch.as_tensor(x, dtype=torch.float64,
+                                         device=device)
+                         for x in (values, errors, A))
+    return tuple(q[0] for q in suff_stats(A, values[None], errors[None]))
 
 
 def reg_mats_eig(reg_mats):
@@ -198,3 +210,16 @@ def fit_records(values, errors, A, reg_mats, method: str = "chi2",
 def log_alphas_to_raw(log_alphas):
     """log10 alphas -> the reference's RAW alphas (-inf -> 0, NaN -> NaN)."""
     return torch.pow(10.0, log_alphas)
+
+
+def fit_one_record(values, errors, A, reg_mats, method: str,
+                   manual_params=None, regparam_mode: str = "exact",
+                   device="cuda"):
+    """Fit a single record: fit_records of a batch of one, returning
+    (C, dC, chi2, reg_params) of the record as tensors on ``device``."""
+    C, dC, chi2, rp = fit_records(
+        torch.as_tensor(values, dtype=torch.float64)[None],
+        torch.as_tensor(errors, dtype=torch.float64)[None], A, reg_mats,
+        method=method, manual_params=manual_params,
+        regparam_mode=regparam_mode, device=check_device(device))
+    return C[0], dC[0], chi2[0], rp[0]

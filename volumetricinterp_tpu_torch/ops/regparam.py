@@ -37,10 +37,11 @@ from __future__ import annotations
 
 import torch
 
-from .solve import (TINY64, _keep_mask, _mv, alpha_of_log, anchor_chi2,
-                    chi2_from_eig_x, cutoff_chi2_x, deflated_diag,
-                    make_anchor, norm_scale, normalized_eigh, project,
-                    select_anchor, whiten_pencil, whitened_chi2)
+from .solve import (EPS64, TINY64, _keep_mask, _mv, alpha_of_log,
+                    anchor_chi2, chi2_from_eig_x, cutoff_chi2_x,
+                    deflated_diag, make_anchor, norm_scale, normalized_eigh,
+                    project, select_anchor, sym_pinv_apply, whiten_pencil,
+                    whitened_chi2)
 
 # reference constants (interpolate.py:173, 199-202)
 SCALE_FACTORS = (0.6, 0.7, 0.8, 0.9, 1.0)
@@ -530,16 +531,65 @@ def gcv_reg_param_fast(AtWb, R, A, b, W, mask, eig_AtWA, point_sum=None):
     lam, Q, Binv = whiten_pencil(R, eig_AtWA)
     u = _mv(Q.transpose(-1, -2), _mv(Binv, AtWb))
     T = A @ (Binv.transpose(-1, -2) @ Q)  # [B, P, n]
-    Tt, T2t = T.transpose(-1, -2), (T * T).transpose(-1, -2)
+    T2 = T * T
 
     def obj(x):
-        d = 1.0 / (1.0 + torch.pow(10.0, x)[..., None] * lam[:, None])
-        yhat = (d * u[:, None]) @ Tt
-        h = W[:, None] * (d @ T2t)
-        return _summed(_loo_sum(yhat, h, b, W, mask), point_sum)
+        return _summed(gcv_objective_fast(x, lam, u, T, T2, b, W, mask),
+                       point_sum)
 
     x, ok = nelder_mead_1d(obj, _full(AtWb, GCV_ALPHA0))
     return torch.where(ok, x, torch.full_like(x, float("nan")))
+
+
+def gcv_objective_fast(a_log, lam, u, T, T2, b, W, mask):
+    """Whitened O(npoints nbasis)-an-alpha GCV objective at 10^a_log
+    [B, K] (regparam.py:941-962): with the pencil whitened
+    (solve.whiten_pencil) and T = A Binv' Q [B, P, n] the design rows in
+    the whitened eigenbasis, T2 = T * T, d = 1 / (1 + alpha lam) gives
+    yhat = T (d u) and h = W T2 d.  lam, u [B, n]; b, W [B, P] (masked),
+    mask [B, P] bool.  Returns [B, K]."""
+    d = 1.0 / (1.0 + torch.pow(10.0, a_log)[..., None] * lam[:, None])
+    yhat = (d * u[:, None]) @ T.transpose(-1, -2)
+    h = W[:, None] * (d @ T2.transpose(-1, -2))
+    return _loo_sum(yhat, h, b, W, mask)
+
+
+def gcv_objective(a_log, AtWA, AtWb, R, A, b, W, mask):
+    """Sum of W-weighted squared leave-one-out residuals of one record at
+    reg param 10^a_log (regparam.py:907-938), by the exact rank-one
+    downdate  r_i = (yhat_i - b_i) / (1 - h_ii),  h_ii = W_i a_i' pinv(X)
+    a_i,  X = AtWA + alpha R,  with sym_pinv_apply's cutoffs (gelsd's for
+    C, eps * max for pinv(X)).  AtWA [n, n], AtWb [n], R [n, n]; A [P, n];
+    b, W, mask [P] (mask bool or 0/1; masked points count nothing).
+    a_log: a number or a tensor of any shape; returns its shape."""
+    a = torch.pow(10.0, torch.as_tensor(a_log, dtype=AtWA.dtype,
+                                        device=AtWA.device))
+    C, H = sym_pinv_apply(AtWA + a[..., None, None] * R, AtWb,
+                          rcond_factor_H=EPS64)
+    yhat = C @ A.T  # [..., P]
+    h = W * ((A @ H) * A).sum(-1)
+    keep = mask > 0
+    r = torch.where(keep, (yhat - b) / (1.0 - h), torch.zeros_like(yhat))
+    return (r * r * torch.where(keep, W, torch.zeros_like(W))).sum(-1)
+
+
+def gcv_reg_param(AtWA, AtWb, R, A, b, W, mask, regparam_mode="exact"):
+    """GCV regularization parameter of one record and one matrix
+    (regparam.py:1052-1073): scipy's Nelder-Mead from log10 alpha = -20
+    over gcv_objective ('exact') or the whitened objective ('fast',
+    gcv_reg_param_fast on a batch of one).  Arguments as gcv_objective's;
+    W is zero at masked points.  Returns LOG10(alpha), a 0-d tensor; NaN
+    where Nelder-Mead does not converge (interpolate.py:292-293)."""
+    if regparam_mode == "fast":
+        w, V, s = normalized_eigh(AtWA[None])
+        return gcv_reg_param_fast(AtWb[None], R, A, b[None], W[None],
+                                  mask[None] > 0, (w * s[:, None], V))[0]
+
+    def obj(x):  # x [1, K]: the K candidates of an iteration at once
+        return gcv_objective(x, AtWA, AtWb, R, A, b, W, mask)
+
+    x, ok = nelder_mead_1d(obj, _full(AtWb[:1], GCV_ALPHA0))
+    return torch.where(ok, x, torch.full_like(x, float("nan")))[0]
 
 
 MANUAL_PARAMS = {"curvature": 1.0e-28, "0thorder": 1.0e-23}

@@ -1,12 +1,14 @@
 """Chebyshev tables for non-integer-degree associated Legendre functions.
 
-Host float64 copy of ``volumetricinterp_tpu/tables.py``.  Each
-P_nu^m(cos theta) of the basis is a smooth 1-D function of theta on the cap
-domain; it is interpolated once on the host from machine-accurate
-scipy.special.lpmv seeds, truncated where every function's Chebyshev tail
-falls below ``tol`` relative to its sup-norm, and evaluated by Clenshaw
-(``np_cheb_clenshaw``) for the design matrix.  The grid evaluator refits
-the same tables onto the narrow colatitude band of a query grid.
+Float64 copy of ``volumetricinterp_tpu/tables.py``.  Each P_nu^m(cos
+theta) of the basis is a smooth 1-D function of theta on the cap domain; it
+is interpolated once on the host from machine-accurate scipy.special.lpmv
+seeds, truncated where every function's Chebyshev tail falls below ``tol``
+relative to its sup-norm, and evaluated by Clenshaw: on the host
+(``np_cheb_clenshaw``) for the design matrix of numpy points, in torch on
+the points' device (``cheb_clenshaw``, ``LegendreTables.eval_all``) for
+tensor points.  The grid evaluator refits the same tables onto the narrow
+colatitude band of a query grid.
 """
 
 from __future__ import annotations
@@ -51,6 +53,23 @@ def np_cheb_clenshaw(u, coef):
     return u[..., None] * b1 - b2 + coef[0]
 
 
+def cheb_clenshaw(u, coef):
+    """sum_k coef[k, :] T_k(u) by Clenshaw, u.shape + (ncols,), in torch in
+    the dtype and on the device of the tensor ``u`` (clipped to [-1, 1]);
+    coef: [D, ncols], an array or a tensor."""
+    import torch
+
+    u = torch.clamp(u, -1.0, 1.0)
+    coef = torch.as_tensor(coef, dtype=u.dtype, device=u.device)
+    two_u = (2.0 * u)[..., None]
+    b1 = torch.zeros(u.shape + (coef.shape[1],), dtype=u.dtype,
+                     device=u.device)
+    b2 = torch.zeros_like(b1)
+    for k in range(coef.shape[0] - 1, 0, -1):
+        b1, b2 = two_u * b1 - b2 + coef[k], b1
+    return u[..., None] * b1 - b2 + coef[0]
+
+
 @dataclass
 class LegendreTables:
     """Chebyshev tables of P_nu(l)^{mbar}(cos theta) on theta in [0, theta_max].
@@ -69,6 +88,20 @@ class LegendreTables:
     @property
     def npairs(self) -> int:
         return self.maxl * (self.maxl + 1) // 2
+
+    def pair_index(self, l: int, mbar: int) -> int:
+        return l * (l + 1) // 2 + mbar
+
+    def column(self, l: int, mbar: int, shift: int) -> int:
+        return 3 * self.pair_index(l, mbar) + (shift + 1)
+
+    def theta_to_u(self, theta):
+        return 2.0 * theta / self.theta_max - 1.0
+
+    def eval_all(self, theta):
+        """All table functions at the tensor theta, theta.shape + (ncols,),
+        by Clenshaw on theta's device (float64 for float64 theta)."""
+        return cheb_clenshaw(self.theta_to_u(theta), self.coef_np)
 
     def eval_all_np(self, theta: np.ndarray) -> np.ndarray:
         """All table functions at theta (host), theta.shape + (ncols,)."""
