@@ -403,10 +403,13 @@ class Interpolate:
         """Fit record chunks of ``chunk_size`` (default min(nrec, 128))
         records in turn; returns host (C_all, dC_all, c2_all, rp_all).
 
-        Each chunk's first step (ops/fit.prepare_chunk: statistics, and
-        AtWA's eigendecomposition on the host) runs one chunk ahead on a
-        worker thread and, on the card, a side stream: the host LAPACK
-        work overlaps the card's search of the chunk before."""
+        Each chunk's first step (ops/fit.prepare_chunk: its statistics and
+        the host LAPACK decompositions that depend on them alone: AtWA's,
+        the 'fast' pencils, the 'exact' search's start and seed anchor)
+        runs one chunk ahead on a worker thread and, on the card, a side
+        stream, so that it overlaps the search of the chunk before; the
+        two threads' host_eigh calls each have their own pool of host
+        threads (ops/solve.py)."""
         names = self.regularization_list
         nrec = value.shape[0]
         nb = self.model.nbasis
@@ -462,8 +465,9 @@ class Interpolate:
             def stage(s, e):
                 with (torch.cuda.stream(side) if cuda
                       else contextlib.nullcontext()):
-                    p = prepare_chunk(value[s:e], error[s:e], A_d, method,
-                                      mode, len(names), self.device)
+                    p = prepare_chunk(value[s:e], error[s:e], A_d, R_d,
+                                      method, mode, self.device, reg_eig,
+                                      reg_taus)
                     if cuda:
                         p["event"] = side.record_event()
                 return p

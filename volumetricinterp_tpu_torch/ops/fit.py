@@ -16,6 +16,13 @@ The dispatch of the JAX package's fit_from_stats_x / fit_one_record_x
 * chi2 'exact_grid' and 'fast', gcv (both modes), manual: a search per
   matrix, then the cutoff solve.
 
+Every eigendecomposition of a fit runs by the host LAPACK route
+(solve.host_eigh).  Those that depend on a chunk's statistics alone,
+AtWA's, the 'fast' searches' whitened pencils and the 'exact' search's
+start with its seed anchor, are taken by ``prepare_chunk`` /
+``prepare_stats``, which Interpolate runs a chunk ahead; the exact
+search's endgame anchor and the final solve follow its rounds.
+
 reg_taus (optional, one tau vector a matrix): data-informed regularization
 toward a target profile, in every chi2 mode's search and final solve and in
 manual fits; GCV searches and solves without it, as the JAX package does
@@ -32,7 +39,7 @@ import numpy as np
 import torch
 
 from . import regparam
-from .solve import (final_solve, final_solve_anchor, host_eigh,
+from .solve import (CARD_BATCH, final_solve, final_solve_anchor,
                     masked_points, normalized_eigh, suff_stats)
 from ..utils.device import check_device
 
@@ -65,36 +72,84 @@ def reg_mats_eig(reg_mats):
 
 
 def atwa_eig(AtWA):
-    """AtWA's normalized eigendecomposition (w, V, s) for the 'exact'
-    searches, in LAPACK float64 on the host CPU (solve.host_eigh), on the
-    card as on the CPU: it decides the chi2 search's floor, and the whole
-    search and the final solve inherit its basis (PERF.md).  A fit without
-    regularization matrices (radbasfun) is AtWA's cutoff solve itself, so
-    it takes this decomposition too."""
-    return normalized_eigh(AtWA, host_eigh)
+    """AtWA's normalized eigendecomposition (w, V, s), by the fit's host
+    route (solve.host_eigh): the exact searches' floor and basis, the fast
+    searches' whitening, and, for a fit without regularization matrices
+    (radbasfun), the cutoff solve itself."""
+    return normalized_eigh(AtWA)
 
 
 def takes_atwa_eig(method, regparam_mode, nreg):
-    """Whether fit_records takes ``atwa_eig``: the 'exact' chi2 and every
-    GCV search but 'fast', and the final solve of a fit with no
+    """Whether fit_records takes ``atwa_eig``: every search but the manual
+    alphas and exact_grid's chi2 grid, and the final solve of a fit with no
     regularization matrix."""
     return nreg == 0 or (
-        method != "manual" and regparam_mode != "fast"
+        method != "manual"
         and not (regparam_mode == "exact_grid" and method == "chi2"))
 
 
-def prepare_chunk(values, errors, A, method, regparam_mode, nreg, device):
+def prepare_chunk(values, errors, A, reg_mats, method, regparam_mode, device,
+                  reg_eig=None, reg_taus=None):
     """The first step of fit_records on a record chunk: values and errors
-    on ``device`` in float64, their sufficient statistics and, where the
-    search takes it, AtWA's eigendecomposition on the host.  Interpolate
-    runs it a chunk ahead, on a side stream, so that the host
-    eigendecomposition overlaps the card's search of the chunk before."""
+    on ``device`` in float64, their sufficient statistics, and
+    ``prepare_stats`` of them.  A and reg_mats: tensors on ``device``.
+    Interpolate runs it a chunk ahead, on a worker thread and a side
+    stream, so that its host eigendecompositions overlap the search of the
+    chunk before."""
     values, errors = (torch.as_tensor(x, dtype=torch.float64, device=device)
                       for x in (values, errors))
-    stats = suff_stats(A, values, errors)
-    eigA = (atwa_eig(stats[0]) if takes_atwa_eig(method, regparam_mode, nreg)
+    return prepare_stats(values, errors, suff_stats(A, values, errors),
+                         reg_mats, method, regparam_mode, reg_eig, reg_taus)
+
+
+def prepare_stats(values, errors, stats, reg_mats, method, regparam_mode,
+                  reg_eig=None, reg_taus=None):
+    """The decompositions of a record chunk that depend on its statistics
+    stats = (AtWA, AtWb, btWb, N) only: AtWA's (``eigA``, where
+    ``takes_atwa_eig``); in 'fast' mode each regularization matrix's
+    whitened pencil (``pencils``); for the 'exact' chi2 search each
+    matrix's search start, its seed anchor included (``starts``,
+    regparam.chi2_search_start).  values, errors: the chunk on the fit's
+    device (the GCV objective reads them); reg_eig, reg_taus as in
+    fit_records.  Returns fit_records' ``prepared``.
+
+    On the card the chunk is padded with empty records (NaN values, zero
+    statistics) to a multiple of solve.CARD_BATCH, which fit_records drops
+    from its results: cuBLAS and cuSOLVER pick their reduction orders from
+    the batch's shape, the cutoff staircase turns last-bit changes into
+    moved roots, and so a record's fit is the same whatever batch or layout
+    it comes in (PERF.md)."""
+    nreg = reg_mats.shape[0]
+    nrec = values.shape[0]
+    pad = _padding(values)
+    if pad:
+        empty = values.new_full((pad, values.shape[1]), float("nan"))
+        values, errors = torch.cat([values, empty]), torch.cat([errors, empty])
+        stats = tuple(torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
+                      for x in stats)
+    AtWA, AtWb, btWb, N = stats
+    eigA = (atwa_eig(AtWA) if takes_atwa_eig(method, regparam_mode, nreg)
             else None)
-    return {"values": values, "errors": errors, "stats": stats, "eigA": eigA}
+    pencils = starts = None
+    if nreg and method != "manual" and regparam_mode == "fast":
+        pencils = [regparam.pencil(R, eigA) for R in reg_mats]
+    elif nreg and method == "chi2" and regparam_mode == "exact":
+        VR, sR = reg_mats_eig(reg_mats) if reg_eig is None else reg_eig
+        taus = ([None] * nreg if reg_taus is None else torch.as_tensor(
+            reg_taus, dtype=torch.float64, device=AtWA.device))
+        starts = [regparam.chi2_search_start(
+            AtWA, AtWb, btWb, N, reg_mats[i], eigA, (VR[i], sR[i]), taus[i])
+            for i in range(nreg)]
+    return {"values": values, "errors": errors, "stats": stats,
+            "eigA": eigA, "pencils": pencils, "starts": starts, "nrec": nrec}
+
+
+def _padding(values):
+    """The empty records prepare_stats appends to a chunk: on the card up
+    to a multiple of CARD_BATCH, none on the CPU."""
+    if values.device.type != "cuda":
+        return 0
+    return -values.shape[0] % CARD_BATCH
 
 
 def fit_records(values, errors, A, reg_mats, method: str = "chi2",
@@ -108,8 +163,10 @@ def fit_records(values, errors, A, reg_mats, method: str = "chi2",
     [nreg] (reference convention) for method 'manual'.  Arrays or tensors;
     everything is moved to ``device`` in float64.  reg_eig: ``reg_mats_eig``
     of reg_mats, computed here when not given.  reg_taus: [nreg, nbasis]
-    tau vectors or None.  prepared: ``prepare_chunk`` of these records
-    (values and errors are then not read), computed here when not given.
+    tau vectors or None.  prepared: ``prepare_chunk`` (or
+    ``prepare_stats``) of these records in this method and mode, with these
+    reg_eig and reg_taus (values and errors are then not read), computed
+    here when not given.
     point_sum: for a fit whose points are sharded over processes
     (parallel/fit.py), the sum over the shards of a GCV objective computed
     on this process's points; prepared then holds the whole statistics.
@@ -126,17 +183,17 @@ def fit_records(values, errors, A, reg_mats, method: str = "chi2",
     A, reg_mats = (torch.as_tensor(x, dtype=torch.float64, device=device)
                    for x in (A, reg_mats))
     nreg = reg_mats.shape[0]
-    if prepared is None:
-        prepared = prepare_chunk(values, errors, A, method, regparam_mode,
-                                 nreg, device)
-    values, errors = prepared["values"], prepared["errors"]
-    nrec = values.shape[0]
     if method == "gcv":
         reg_taus = None
     if reg_taus is not None:
         reg_taus = torch.as_tensor(reg_taus, dtype=torch.float64,
                                    device=device)
     taus = [None] * nreg if reg_taus is None else list(reg_taus)
+    if prepared is None:
+        prepared = prepare_chunk(values, errors, A, reg_mats, method,
+                                 regparam_mode, device, reg_eig, reg_taus)
+    values, errors = prepared["values"], prepared["errors"]
+    nrec = values.shape[0]  # the chunk's records, and the card's padding
 
     AtWA, AtWb, btWb, N = prepared["stats"]
     anchored = None
@@ -152,37 +209,35 @@ def fit_records(values, errors, A, reg_mats, method: str = "chi2",
                                           taus[i])
              for i in range(nreg)], dim=-1)
     elif regparam_mode == "fast":
-        # AtWA's raw-scale eigendecomposition, shared by every whitening
-        w, V, s = normalized_eigh(AtWA)
-        eig_raw = (w * s[:, None], V)
+        # the whitened pencils prepare_stats took from AtWA's decomposition
         if method == "chi2":
-            searches = [regparam.chi2_reg_param_fast(AtWb, btWb, N, R, eig_raw,
-                                                     tau)
-                        for R, tau in zip(reg_mats, taus)]
+            searches = [regparam.chi2_reg_param_fast(AtWb, btWb, N, pen, tau)
+                        for pen, tau in zip(prepared["pencils"], taus)]
         else:
             b, W, mask = masked_points(values, errors)
             searches = [regparam.gcv_reg_param_fast(
-                AtWb, R, A, b, W, mask, eig_raw, point_sum)
-                for R in reg_mats]
+                AtWb, A, b, W, mask, pen, point_sum)
+                for pen in prepared["pencils"]]
         log_alphas = torch.stack(searches, dim=-1)
     else:
         eigA = prepared["eigA"]
-        VR, sR = reg_mats_eig(reg_mats) if reg_eig is None else reg_eig
         if method == "gcv":
+            VR, sR = reg_mats_eig(reg_mats) if reg_eig is None else reg_eig
             b, W, mask = masked_points(values, errors)
             searches = [regparam.gcv_reg_param_x(
                 AtWA, AtWb, reg_mats[i], A, b, W, mask, eigA, (VR[i], sR[i]),
                 point_sum) for i in range(nreg)]
         elif nreg == 1:
+            # the search's start (R's basis in it) is prepare_stats'
             root, anchor, chi2_fb = regparam.chi2_reg_param(
-                AtWA, AtWb, btWb, N, reg_mats[0], eigA, (VR[0], sR[0]),
-                want_anchor=True, tau=taus[0])
+                AtWA, AtWb, btWb, N, reg_mats[0], eigA, None,
+                want_anchor=True, tau=taus[0], start=prepared["starts"][0])
             searches = [root]
             anchored = (anchor, chi2_fb)
         else:
             searches = [regparam.chi2_reg_param(
-                AtWA, AtWb, btWb, N, reg_mats[i], eigA, (VR[i], sR[i]),
-                tau=taus[i])
+                AtWA, AtWb, btWb, N, reg_mats[i], eigA, None, tau=taus[i],
+                start=prepared["starts"][i])
                 for i in range(nreg)]
         log_alphas = torch.stack(searches, dim=-1)
 
@@ -201,10 +256,11 @@ def fit_records(values, errors, A, reg_mats, method: str = "chi2",
                                   eig=prepared["eigA"] if nreg == 0 else None)
 
     # NaN-fill failed records (interpolate.py:557-563)
-    C = torch.where(bad[:, None], float("nan"), C)
-    dC = torch.where(bad[:, None, None], float("nan"), dC)
-    chi2 = torch.where(bad, float("nan"), chi2)
-    return C, dC, chi2, log_alphas_to_raw(log_alphas)
+    n = prepared["nrec"]
+    C = torch.where(bad[:n, None], float("nan"), C[:n])
+    dC = torch.where(bad[:n, None, None], float("nan"), dC[:n])
+    chi2 = torch.where(bad[:n], float("nan"), chi2[:n])
+    return C, dC, chi2, log_alphas_to_raw(log_alphas[:n])
 
 
 def log_alphas_to_raw(log_alphas):

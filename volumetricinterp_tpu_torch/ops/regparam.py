@@ -157,23 +157,32 @@ def chi2_reg_param_grid(AtWA, AtWb, btWb, N, R, tau=None):
     return _outcome(root, is_smooth, any_event)
 
 
-def _whiten(R, eig_AtWA, AtWb, tau):
-    """(lam, u, utau) of the whitened pencil: u = Q'B^-1 AtWb, utau =
-    Q'B^-1 tau (None without a tau)."""
-    lam, Q, Binv = whiten_pencil(R, eig_AtWA)
+def pencil(R, eigA):
+    """The whitened pencil (lam, Q, Binv) of (AtWA, R) (solve.whiten_pencil)
+    from AtWA's normalized eigendecomposition eigA = (w, V, s).  It depends
+    on the statistics only: ops/fit.prepare_stats computes it a chunk
+    ahead for the 'fast' searches and in chi2_search_start."""
+    w, V, s = eigA
+    return whiten_pencil(R, (w * s[:, None], V))
+
+
+def _whiten(pen, AtWb, tau):
+    """(lam, u, utau) of the whitened pencil pen = (lam, Q, Binv): u =
+    Q'B^-1 AtWb, utau = Q'B^-1 tau (None without a tau)."""
+    lam, Q, Binv = pen
     Qt = Q.transpose(-1, -2)
     u = _mv(Qt, _mv(Binv, AtWb))
     utau = None if tau is None else _mv(Qt, _mv(Binv, tau))
     return lam, u, utau
 
 
-def chi2_reg_param_fast(AtWb, btWb, N, R, eig_AtWA, tau=None):
+def chi2_reg_param_fast(AtWb, btWb, N, pen, tau=None):
     """'fast' chi2 search (regparam.py:586-653): one pencil whitening a
     record, then the 101-point grid and 9 rounds of 31-point k-section on
-    the O(nbasis) whitened objective.  ``eig_AtWA``: (w, V) of AtWA on the
-    raw scale, shared across regularization matrices; tau [nb] or None.
+    the O(nbasis) whitened objective.  ``pen``: the record batch's
+    ``pencil`` of the regularization matrix; tau [nb] or None.
     Returns LOG10(alpha) [B]; -inf for too-smooth, NaN for no bracket."""
-    lam, u, utau = _whiten(R, eig_AtWA, AtWb, tau)
+    lam, u, utau = _whiten(pen, AtWb, tau)
     dev, dt = AtWb.device, AtWb.dtype
     alphas = -torch.arange(N_GRID, dtype=dt, device=dev)
     chi2_grid = whitened_chi2(alphas.expand(AtWb.shape[0], -1), lam, u, btWb,
@@ -285,35 +294,22 @@ def _defect_round(state, anchor, clip, nu, lam, u, utau, btWb):
     return lo, hi, r_next, r_eval, d
 
 
-def chi2_reg_param(AtWA, AtWb, btWb, N, R, eigA, eigR, want_anchor=False,
-                   tau=None):
-    """chi2 = nu regularization parameter, the defect-corrected exact
-    search ('exact' mode; the float64 path of regparam.py:223-516).
+def _anchor_at(a_log, AtWA, AtWb, R, tau):
+    """One eigendecomposition of X(10^a_log), as an M-shift anchor."""
+    w, V, s = normalized_eigh(AtWA + alpha_of_log(a_log)[:, None, None] * R)
+    return make_anchor(a_log, w, V, s, R, AtWb, tau)
 
-    AtWA [B, n, n], AtWb [B, n], btWb [B], N [B]; R [n, n]; tau [n] or
-    None.  eigA: (w, V, s), AtWA's normalized eigendecomposition, shared with the
-    other regularization matrices and the final solve; eigR: (V, s) of R's,
-    computed once a run.
 
-    Eigendecompositions a record: AtWA's (eigA), the whitened pencil G, the
-    seed anchor and the root-centred endgame anchor.  The alpha = 1
-    endpoint X(1) = AtWA + R is projected on R's basis or AtWA's, whichever
-    scale dominates, and solved coupled: no eigh.  Every defect and polish
-    round is an anchored M-shift evaluation: no eigh.
-
-    want_anchor: also return the final solve's anchor (the endgame anchor,
-    or AtWA's own for too-smooth records) and the whitened chi^2 at the
-    root, the negative-chi^2 report.
-
-    Returns LOG10(alpha) [B]: -inf for too-smooth, NaN for no bracket."""
+def chi2_search_start(AtWA, AtWb, btWb, N, R, eigA, eigR, tau=None):
+    """The part of the exact search that depends on the statistics only,
+    which ops/fit.prepare_stats runs a chunk ahead: the exact floor, the
+    whitened pencil, the alpha = 1 endpoint and the ladder's rung, the
+    seed and its M-shift anchor (defect round 0 re-anchors at the seed,
+    REANCHOR_ROUNDS).  Arguments as chi2_reg_param's.  Returns the dict
+    chi2_reg_param takes as ``start``."""
     wA, VA, sA = eigA
     chi2_floor = chi2_from_eig_x(wA, VA, None, AtWb, btWb, sA)
-    lam, u, utau = _whiten(R, (wA * sA[:, None], VA), AtWb, tau)
-
-    def anchor_at(a_log):
-        """One eigendecomposition of X(10^a_log), as an M-shift anchor."""
-        w, V, s = normalized_eigh(AtWA + alpha_of_log(a_log)[:, None, None] * R)
-        return make_anchor(a_log, w, V, s, R, AtWb, tau)
+    lam, u, utau = _whiten(pencil(R, eigA), AtWb, tau)
 
     # alpha = 1 endpoint on the dominant side's basis (regparam.py:305-323)
     VR, sR = eigR
@@ -343,30 +339,63 @@ def chi2_reg_param(AtWA, AtWb, btWb, N, R, eigA, eigR, want_anchor=False,
     r = whitened_root_offset(lam, u, btWb, nu, d0, utau=utau)
     r = torch.clamp(torch.where(torch.isnan(r), torch.full_like(r, -50.0), r),
                     ALPHA_MIN + 0.1, -0.1)
+    return {"lam": lam, "u": u, "utau": utau, "nu": nu,
+            "is_smooth": is_smooth, "any_event": any_event, "seed": r,
+            "anchor": _anchor_at(r, AtWA, AtWb, R, tau)}
+
+
+def chi2_reg_param(AtWA, AtWb, btWb, N, R, eigA, eigR, want_anchor=False,
+                   tau=None, start=None):
+    """chi2 = nu regularization parameter, the defect-corrected exact
+    search ('exact' mode; the float64 path of regparam.py:223-516).
+
+    AtWA [B, n, n], AtWb [B, n], btWb [B], N [B]; R [n, n]; tau [n] or
+    None.  eigA: (w, V, s), AtWA's normalized eigendecomposition, shared with the
+    other regularization matrices and the final solve; eigR: (V, s) of R's,
+    computed once a run.  start: ``chi2_search_start`` of these arguments,
+    computed here when not given.
+
+    Eigendecompositions a record: AtWA's (eigA), the whitened pencil G, the
+    seed anchor (those three before the search's loop) and the root-centred
+    endgame anchor.  The alpha = 1 endpoint X(1) = AtWA + R is projected on
+    R's basis or AtWA's, whichever scale dominates, and solved coupled: no
+    eigh.  Every defect and polish round is an anchored M-shift
+    evaluation: no eigh.
+
+    want_anchor: also return the final solve's anchor (the endgame anchor,
+    or AtWA's own for too-smooth records) and the whitened chi^2 at the
+    root, the negative-chi^2 report.
+
+    Returns LOG10(alpha) [B]: -inf for too-smooth, NaN for no bracket."""
+    if start is None:
+        start = chi2_search_start(AtWA, AtWb, btWb, N, R, eigA, eigR, tau)
+    lam, u, utau, nu = (start[k] for k in ("lam", "u", "utau", "nu"))
+    r = start["seed"]
     state = (_full(r, ALPHA_MIN), _full(r, 0.0), r, _full(r, float("nan")),
              _full(r, float("nan")))
-    anchor = None
+    anchor = start["anchor"]  # round 0 re-anchors at the seed
     for i in range(N_DEFECT):
         fresh = i in REANCHOR_ROUNDS
-        if fresh:
-            anchor = anchor_at(state[2])
+        if fresh and i > 0:
+            anchor = _anchor_at(state[2], AtWA, AtWb, R, tau)
         state = _defect_round(state, anchor, not fresh, nu, lam, u, utau,
                               btWb)
 
     # root-centred endgame: re-anchor at the candidate, then polish rounds
     # (the first unclipped, at the fresh anchor)
     r_cand = torch.clamp(_root_of(state), ALPHA_MIN, 0.0)
-    anchor = anchor_at(r_cand)
+    anchor = _anchor_at(r_cand, AtWA, AtWb, R, tau)
     state = (state[0], state[1], r_cand, state[3], state[4])
     for i in range(N_POLISH):
         state = _defect_round(state, anchor, i > 0, nu, lam, u, utau, btWb)
-    root = _outcome(_root_of(state), is_smooth, any_event)
+    is_smooth = start["is_smooth"]
+    root = _outcome(_root_of(state), is_smooth, start["any_event"])
     if not want_anchor:
         return root
     chi2_fb = whitened_chi2(
         torch.where(torch.isfinite(root), root, torch.full_like(root, ALPHA_MIN)),
         lam, u, btWb, utau)
-    fresh = make_anchor(_full(root, -float("inf")), wA, VA, sA, R, AtWb, tau)
+    fresh = make_anchor(_full(root, -float("inf")), *eigA, R, AtWb, tau)
     return root, select_anchor(is_smooth, fresh, anchor), chi2_fb
 
 
@@ -521,14 +550,14 @@ def gcv_reg_param_x(AtWA, AtWb, R, A, b, W, mask, eigA, eigR,
     return torch.where(ok, x, torch.full_like(x, float("nan")))
 
 
-def gcv_reg_param_fast(AtWb, R, A, b, W, mask, eig_AtWA, point_sum=None):
+def gcv_reg_param_fast(AtWb, A, b, W, mask, pen, point_sum=None):
     """GCV regularization parameter, 'fast' mode (gcv_reg_param with
     gcv_objective_fast, regparam.py:941-962, 1052-1070): the whitened
     objective, O(npoints nbasis) an evaluation, at the exact float64
-    10**a_log.  ``eig_AtWA``: (w, V) of AtWA, raw scale; point_sum as in
-    gcv_reg_param_x.  Returns
+    10**a_log.  ``pen``: the record batch's ``pencil`` of the
+    regularization matrix; point_sum as in gcv_reg_param_x.  Returns
     LOG10(alpha) [B], NaN where Nelder-Mead does not converge."""
-    lam, Q, Binv = whiten_pencil(R, eig_AtWA)
+    lam, Q, Binv = pen
     u = _mv(Q.transpose(-1, -2), _mv(Binv, AtWb))
     T = A @ (Binv.transpose(-1, -2) @ Q)  # [B, P, n]
     T2 = T * T
@@ -581,9 +610,9 @@ def gcv_reg_param(AtWA, AtWb, R, A, b, W, mask, regparam_mode="exact"):
     W is zero at masked points.  Returns LOG10(alpha), a 0-d tensor; NaN
     where Nelder-Mead does not converge (interpolate.py:292-293)."""
     if regparam_mode == "fast":
-        w, V, s = normalized_eigh(AtWA[None])
-        return gcv_reg_param_fast(AtWb[None], R, A, b[None], W[None],
-                                  mask[None] > 0, (w * s[:, None], V))[0]
+        pen = pencil(R, normalized_eigh(AtWA[None]))
+        return gcv_reg_param_fast(AtWb[None], A, b[None], W[None],
+                                  mask[None] > 0, pen)[0]
 
     def obj(x):  # x [1, K]: the K candidates of an iteration at once
         return gcv_objective(x, AtWA, AtWb, R, A, b, W, mask)

@@ -11,6 +11,16 @@ leading record axis:
   eigendecomposition of the trace-normalized normal matrix: C with the
   gelsd cutoff |w| > eps * max|w|, the covariance with scipy.linalg.pinv's
   N * eps * max|w| (docs/PARITY_NOTES.md #8).
+* Every eigendecomposition whose result becomes a fit's C, dC, chi^2 or
+  alpha, in every mode and method, runs by ONE route, ``host_eigh``:
+  LAPACK float64 on the host CPU, the results copied back to the fit's
+  device (the ``decompose=None`` default of normalized_eigh, whiten_pencil
+  and the solves built on them).  On the card that is a design choice, not
+  a fallback: it lands the fits where the JAX package's CPU float64
+  reference and a CPU run of the port land, whatever the batch's layout
+  (PERF.md).  The statistics, products, kept-block solves and anchored
+  rounds stay on the device.  ``eigh`` (cuSOLVER on the card) is the
+  leave-one-beam-out sweep's only (sweep.py).
 * chi^2 uses the cancellation-free identity chi2 = btWb - u'z/s - C'(aR)C
   (u = V'AtWb, z the kept-mode solve, s the normalization scale).
 * M-shift ANCHORS (``make_anchor`` / ``anchor_chi2`` /
@@ -33,6 +43,7 @@ inf/NaN, as in the JAX package, and never raises.
 from __future__ import annotations
 
 import os
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -49,43 +60,60 @@ host_eigh_matrices = 0
 host_eigh_seconds = 0.0
 # host threads of ``host_eigh``: each decomposes a slice of the batch
 HOST_EIGH_THREADS = min(8, os.cpu_count() or 1)
-_host_pool = None
+_pools = threading.local()
+_count_lock = threading.Lock()
 
 
 def eigh(X):
-    """torch.linalg.eigh of a (batch of) symmetric matrices, counted."""
+    """torch.linalg.eigh of a (batch of) symmetric matrices on X's device
+    (cuSOLVER on the card), counted."""
     global eigh_matrices
-    eigh_matrices += X[..., 0, 0].numel()
+    with _count_lock:
+        eigh_matrices += X[..., 0, 0].numel()
     return torch.linalg.eigh(X)
+
+
+def _host_pool():
+    """The calling thread's pool of HOST_EIGH_THREADS workers, each with one
+    intra-op thread: Interpolate prepares the next chunk on a worker thread
+    while its main thread searches this one, and with a pool each neither
+    queues behind the other's decompositions."""
+    pool = getattr(_pools, "pool", None)
+    if pool is None:
+        pool = _pools.pool = ThreadPoolExecutor(
+            HOST_EIGH_THREADS, initializer=torch.set_num_threads,
+            initargs=(1,))
+    return pool
 
 
 def host_eigh(X):
     """``eigh`` computed in LAPACK float64 on the host CPU, the batch split
     over HOST_EIGH_THREADS threads; (w, V) come back on X's device.
 
-    AtWA's eigendecomposition runs here by design (ops/fit.py): it decides
-    the exact search's floor chi^2, which sums u_i^2 / w_i over the modes
-    just above the gelsd cutoff, and LAPACK resolves that near-null end as
-    the JAX package's CPU float64 reference does, while the card's
-    cuSOLVER lifts the floor of some records over N and NaN-fails them
-    (PERF.md).  Each pool thread runs its slice with one intra-op
-    thread: LAPACK's own threads on a 144x144 matrix only contend."""
-    global eigh_matrices, host_eigh_matrices, host_eigh_seconds, _host_pool
+    The fit engine's one decomposition: every eigendecomposition whose
+    result becomes a fit's C, dC, chi^2 or alpha comes here, in every
+    REGPARAM_MODE and method, on the card as on the CPU (normalized_eigh,
+    whiten_pencil and the solves built on them).  LAPACK resolves the
+    near-null end of these matrices, the modes at the gelsd cutoff that set
+    the exact search's floor and its staircase of roots, as the JAX
+    package's CPU float64 reference does; the card's cuSOLVER resolved it
+    otherwise, NaN-failed records, put the card's fits twice as far from
+    the reference as a CPU's and made them follow the record batch's layout
+    (PERF.md).  Each pool thread runs its slice with one intra-op thread:
+    LAPACK's own threads on a 144x144 matrix only contend."""
+    global eigh_matrices, host_eigh_matrices, host_eigh_seconds
     t0 = time.perf_counter()
     n = X[..., 0, 0].numel()
-    eigh_matrices += n
-    host_eigh_matrices += n
     Xh = X.detach().to("cpu").reshape((-1,) + X.shape[-2:])
-    if _host_pool is None:
-        _host_pool = ThreadPoolExecutor(HOST_EIGH_THREADS,
-                                        initializer=torch.set_num_threads,
-                                        initargs=(1,))
     parts = [p for p in torch.tensor_split(Xh, HOST_EIGH_THREADS) if len(p)]
-    res = list(_host_pool.map(torch.linalg.eigh, parts))
+    res = list(_host_pool().map(torch.linalg.eigh, parts))
     w = torch.cat([r[0] for r in res]).reshape(X.shape[:-1])
     V = torch.cat([r[1] for r in res]).reshape(X.shape)
     w, V = w.to(X.device), V.to(X.device)
-    host_eigh_seconds += time.perf_counter() - t0
+    with _count_lock:
+        eigh_matrices += n
+        host_eigh_matrices += n
+        host_eigh_seconds += time.perf_counter() - t0
     return w, V
 
 
@@ -108,12 +136,52 @@ def alpha_of_log(a_log):
     return m * torch.exp2(k)
 
 
+# records a batch of the card's statistics and fits (ops/fit.prepare_stats)
+CARD_BATCH = 128
+
+
 def suff_stats(A, values, errors):
     """Masked sufficient statistics of a record batch.
 
     A: [npoints, nbasis]; values, errors: [nrec, npoints] (NaN value = no
     data).  Returns (AtWA [nrec, nb, nb], AtWb [nrec, nb], btWb [nrec],
-    N [nrec])."""
+    N [nrec]).
+
+    On the card the products run CARD_BATCH records at a time, a shorter
+    batch padded with empty records: cuBLAS picks its reduction order from
+    the shapes, the batch's size included, and the card's fits follow the
+    last bits of their statistics, so a record's statistics must be the
+    same bits in whatever batch it comes (a sharded layout's or the whole
+    day's; PERF.md).  On the CPU one product over the batch, as the JAX
+    package forms it."""
+    if values.device.type != "cuda":
+        return _batch_stats(A, values, errors)
+    return padded_stats(A, values, errors)
+
+
+def padded_stats(A, values, errors, batch=CARD_BATCH):
+    """suff_stats as the card forms them: ``batch`` records a time, the
+    last batch padded with empty records, each statistic a batched product
+    of one record's own (AtWb and btWb too), so a record's bits depend on
+    neither the batch's size nor its place in it."""
+    nrec = values.shape[0]
+    pad = -nrec % batch
+    if pad:
+        empty = values.new_full((pad, values.shape[1]), float("nan"))
+        values, errors = torch.cat([values, empty]), torch.cat([errors, empty])
+    parts = []
+    for s in range(0, values.shape[0], batch):
+        b, W, mask = masked_points(values[s:s + batch], errors[s:s + batch])
+        Wb = W * b
+        parts.append((A.T @ (A[None] * W[:, :, None]),
+                      (A.T @ Wb[:, :, None])[..., 0],
+                      (Wb[:, None, :] @ b[:, :, None])[:, 0, 0],
+                      mask.sum(-1).to(A.dtype)))
+    return tuple(torch.cat(x)[:nrec] for x in zip(*parts))
+
+
+def _batch_stats(A, values, errors):
+    """suff_stats of one batch of records, as one product each."""
     b, W, mask = masked_points(values, errors)
     Wb = W * b
     AtWA = A.T @ (A[None] * W[:, :, None])
@@ -141,10 +209,10 @@ def norm_scale(X):
 
 
 def normalized_eigh(X, decompose=None):
-    """(w, V, s): eigenpairs of X / s, s = norm_scale(X), by ``decompose``
-    (``eigh`` when None, or ``host_eigh``)."""
+    """(w, V, s): eigenpairs of X / s, s = norm_scale(X), by ``decompose``:
+    the fit's ``host_eigh`` when None, or ``eigh`` (the sweep's)."""
     s = norm_scale(X)
-    w, V = (decompose or eigh)(X / s[..., None, None])
+    w, V = (decompose or host_eigh)(X / s[..., None, None])
     return w, V, s
 
 
@@ -161,27 +229,28 @@ def _kept_solve(w, u, rcond):
                        torch.zeros_like(w))
 
 
-def cutoff_chi2_x(AtWA, AtWb, btWb, aR, atau=None):
+def cutoff_chi2_x(AtWA, AtWb, btWb, aR, atau=None, decompose=None):
     """chi^2 of the fit with X = AtWA + aR under reference gelsd-cutoff
     semantics (interpolate.py:220-261), batched: aR [B, nb, nb] is alpha R
     already formed, atau [B, nb] alpha tau or None.  The float64 branch of
     the JAX package's cutoff_chi2_x / chi2_from_eig_x (the
-    cancellation-free identity)."""
-    w, V, s = normalized_eigh(AtWA + aR)
+    cancellation-free identity).  ``decompose``: as normalized_eigh's."""
+    w, V, s = normalized_eigh(AtWA + aR, decompose)
     return chi2_from_eig_x(w, V, None, AtWb, btWb, s, aR=aR, atau=atau,
                            AtWA=AtWA)
 
 
-def sym_pinv_apply(X, y, rcond_factor=None, want_H=True, rcond_factor_H=None):
+def sym_pinv_apply(X, y, rcond_factor=None, want_H=True, rcond_factor_H=None,
+                   decompose=None):
     """Min-norm solve C = pinv(X) @ y for symmetric X, plus pinv(X), with
     the reference's dual cutoffs (gelsd eps*max for C, pinv N*eps*max for
-    H); batched over leading axes."""
+    H); batched over leading axes.  ``decompose``: as normalized_eigh's."""
     n = X.shape[-1]
     if rcond_factor is None:
         rcond_factor = EPS64
     if rcond_factor_H is None:
         rcond_factor_H = float(n) * EPS64
-    w, V, s = normalized_eigh(X)
+    w, V, s = normalized_eigh(X, decompose)
     w = w * s[..., None]
     Vty = (V.transpose(-1, -2) @ y[..., None])[..., 0]
     C = (V @ _kept_solve(w, Vty, rcond_factor)[..., None])[..., 0]
@@ -210,7 +279,7 @@ def cutoff_chi2(a, AtWA, AtWb, btWb, R):
 
 
 def final_solve(AtWA, AtWb, btWb, reg_mats, log_alphas, reg_taus=None,
-                eig=None):
+                eig=None, decompose=None):
     """Coefficients, covariance and chi^2 of a record batch's regularized
     fit (interpolate.py:432-469 with calccov=True, and the chi^2 of
     interpolate.py:569): the float64 branch of final_solve_x.
@@ -220,7 +289,8 @@ def final_solve(AtWA, AtWb, btWb, reg_mats, log_alphas, reg_taus=None,
     AtWb + sum alpha tau, and chi^2 gains sum alpha tau'C).  Records with a
     NaN alpha are solved at alpha = 0 here; the caller NaN-fills them.
     eig: with no regularization matrix (X = AtWA), AtWA's ``normalized_eigh``
-    to use in place of decomposing X here.
+    to use in place of decomposing X here; ``decompose``: as
+    normalized_eigh's.
     Returns (C [nrec, nb], dC [nrec, nb, nb], chi2 [nrec])."""
     n = AtWA.shape[-1]
     aR = torch.zeros_like(AtWA)
@@ -241,7 +311,8 @@ def final_solve(AtWA, AtWb, btWb, reg_mats, log_alphas, reg_taus=None,
     if eig is not None and reg_mats.shape[0] == 0:
         w, V, s = eig
     else:
-        w, V, s = normalized_eigh(torch.where(bad[:, None, None], eye, X))
+        w, V, s = normalized_eigh(torch.where(bad[:, None, None], eye, X),
+                                  decompose)
     Vt = V.transpose(-1, -2)
     ub = (Vt @ AtWb[..., None])[..., 0]
     u = ub if reg_taus is None else (Vt @ rhs[..., None])[..., 0]
@@ -435,12 +506,12 @@ def final_solve_anchor(anchor, a_log, AtWA, btWb):
 WHITEN_JITTER = 1e-12  # AtWA's eigenvalues are clipped at this times the max
 
 
-def whiten_pencil(R, eig_AtWA):
+def whiten_pencil(R, eig_AtWA, decompose=None):
     """One-time whitening of the pencil (AtWA, R) for O(nbasis) alpha
     scans: with AtWA = V W V', B^-1 = W~^-1/2 V' (W~ clipped at
     WHITEN_JITTER max W), G = B^-1 R B^-T = Q Lam Q'.  R [n, n];
-    ``eig_AtWA``: (w [B, n], V [B, n, n]) of AtWA on the RAW scale.
-    Returns (lam [B, n], Q [B, n, n], Binv [B, n, n])."""
+    ``eig_AtWA``: (w [B, n], V [B, n, n]) of AtWA on the RAW scale;
+    ``decompose``: G's decomposition, as normalized_eigh's.  Returns (lam [B, n], Q [B, n, n], Binv [B, n, n])."""
     w, V = eig_AtWA
     n = w.shape[-1]
     wmax = w.abs().amax(-1, keepdim=True)
@@ -452,7 +523,7 @@ def whiten_pencil(R, eig_AtWA):
     G = Binv @ (R / sR) @ Binv.transpose(-1, -2)
     G = 0.5 * (G + G.transpose(-1, -2))
     sG = torch.diagonal(G, dim1=-2, dim2=-1).abs().sum(-1) / n + 1e-300
-    lam, Q = eigh(G / sG[:, None, None])
+    lam, Q = (decompose or host_eigh)(G / sG[:, None, None])
     return lam * (sG * sR)[:, None], Q, Binv
 
 

@@ -3,13 +3,17 @@
 Two stages, as in the JAX package's parallel/fit.py (fit_records_sharded,
 _stats_then_solve, _gcv_stage):
 
-1. **Statistics.**  Each rank reduces the sufficient statistics of its
-   point shard for its row's records, and the points group all_reduces
-   them in float64 (no two_sum cascade: the card has native float64).
+1. **Statistics.**  Every rank forms its row's statistics over all the
+   row's points, which it holds: the whole batch's bits.  The JAX package
+   sums point-shard partials instead (a psum); on the card a fit follows
+   the last bits of its statistics, and that sum in the order a
+   collective picks moved every exact root of the 64-record window and
+   the fast ones by up to 4e-4 (PERF.md).  The points axis shares
+   out the solve.
 2. **Solve.**  chi2 and manual: the row's records are split over the
    row's ranks, and each fits its share through ops/fit.fit_records from
-   the reduced statistics (``prepared``, with AtWA's host
-   eigendecomposition where the search takes it).  GCV: every rank of a
+   ops/fit.prepare_stats of the row's statistics: the decompositions of
+   the single-process fit, by the same host route.  GCV: every rank of a
    row fits all the row's records, each objective evaluation computed on
    its point shard and summed over the points group (a [nrec] vector an
    evaluation, the JAX package's psum'd scalar).
@@ -24,7 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.fit import atwa_eig, fit_records, takes_atwa_eig
+from ..ops.fit import fit_records, prepare_stats
 from ..ops.solve import suff_stats
 from ..utils.device import check_device
 
@@ -43,7 +47,6 @@ def fit_records_sharded(values, errors, A, reg_mats, mesh, method="chi2",
                                     device=device)
     values, errors, A, reg_mats = map(f64, (values, errors, A, reg_mats))
     nrec, npts = values.shape
-    nreg = reg_mats.shape[0]
     r, p = mesh.records, mesh.points
     # records padded with NaN (fully masked) to a multiple of the mesh size,
     # so that every rank's share has one length
@@ -57,18 +60,17 @@ def fit_records_sharded(values, errors, A, reg_mats, mesh, method="chi2",
     cut = np.linspace(0, npts, p + 1).round().astype(int)
     pts = slice(int(cut[mesh.col]), int(cut[mesh.col + 1]))
 
-    # stage 1: the row's statistics over the points group
+    # stage 1: the row's statistics, over all its points on every rank
     v, e = values[rows, pts], errors[rows, pts]
-    stats = [mesh.all_reduce(x) for x in suff_stats(A[pts], v, e)]
+    stats = suff_stats(A, values[rows], errors[rows])
 
     kw = dict(method=method, manual_params=manual_params,
               regparam_mode=regparam_mode, device=device, reg_eig=reg_eig,
               reg_taus=reg_taus)
     if method == "gcv":
         # stage 2, GCV: the row's records on this point shard
-        prepared = {"values": v, "errors": e, "stats": tuple(stats),
-                    "eigA": (atwa_eig(stats[0]) if takes_atwa_eig(
-                        method, regparam_mode, nreg) else None)}
+        prepared = prepare_stats(v, e, stats, reg_mats, method,
+                                 regparam_mode, reg_eig)
         res = fit_records(v, e, A[pts], reg_mats, prepared=prepared,
                           point_sum=mesh.all_reduce, **kw)
         # one copy of the row's results enters the gather
@@ -78,11 +80,9 @@ def fit_records_sharded(values, errors, A, reg_mats, mesh, method="chi2",
         # stage 2, chi2 and manual: this rank's share of the row's records
         per = per_row // p
         mine = slice(mesh.col * per, (mesh.col + 1) * per)
-        st = tuple(x[mine] for x in stats)
-        prepared = {"values": values[rows][mine], "errors": errors[rows][mine],
-                    "stats": st,
-                    "eigA": (atwa_eig(st[0]) if takes_atwa_eig(
-                        method, regparam_mode, nreg) else None)}
+        prepared = prepare_stats(values[rows][mine], errors[rows][mine],
+                                 tuple(x[mine] for x in stats), reg_mats,
+                                 method, regparam_mode, reg_eig, reg_taus)
         res = fit_records(None, None, A, reg_mats, prepared=prepared, **kw)
         offset = mesh.row * per_row + mesh.col * per
     return tuple(mesh.gather(x, offset, nrec_p)[:nrec] for x in res)

@@ -4,9 +4,9 @@ The two parallel axes of the fit (the JAX package's parallel/mesh.py):
 
 * records: data parallelism over time records (each record's fit is
   independent; the record loop at interpolate.py:511 of the reference);
-* points: A'WA and A'Wb are sums over measurement points
-  (interpolate.py:456-458), so point shards reduce with one all_reduce of
-  the small [nbasis, nbasis] partials.
+* points: a row's ranks share out its solve: the chi2 and manual records,
+  and the GCV objective's measurement points, summed with one all_reduce
+  an evaluation (parallel/fit.py).
 
 Rank k sits at row k // points, column k % points: the records axis varies
 slowest, so with ranks numbered host by host (as torchrun numbers them) a
