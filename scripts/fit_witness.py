@@ -53,7 +53,6 @@ import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -324,9 +323,7 @@ def pool_seconds(device, reps=2):
     """The seed-1 exact day with every site on the host: host_eigh with a
     pool for each calling thread (shipped) and with one shared pool, in
     turns; returns {name: [(day s, fit_records s, host_eigh s), ...]}."""
-    shared = ThreadPoolExecutor(solve.HOST_EIGH_THREADS,
-                                initializer=torch.set_num_threads,
-                                initargs=(1,))
+    shared = solve._one_thread_pool(solve.HOST_EIGH_THREADS)
     own = solve._host_pool
     out = {"own pools": [], "one shared pool": []}
     order = ["own pools", "one shared pool"] * reps

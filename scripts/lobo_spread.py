@@ -4,19 +4,22 @@
 The sweep's held-out chi2 (volumetricinterp_tpu_torch/sweep.py) at the
 production order (MAXK=4, MAXL=6) on the first 64 records of the seed-1
 day, over the oracle's 9 log10 alphas, computed three ways on this host
-in float64 from the same statistics: the port as shipped
-(torch.linalg.eigh inside solve.sym_pinv_apply), the port with its
-eigendecompositions by scipy.linalg.eigh(driver='evr') (another LAPACK
-algorithm), and the JAX package (tests/oracle/day1000_seed1_lobo.npz,
-scripts/window_oracle.py lobo).  Prints, per alpha, the median and max
-per-entry relative difference and the summed-score relative difference of
-each pair, and the order sweep's scores and argmin against the oracle's.
-Where two correct solvers differ as much as the port and the oracle do,
-the gap is the gelsd cutoff's (the leave-one-out systems at small alpha
-carry modes at the cutoff), not the port's.
+in float64 from the same statistics: the port as shipped (its
+decompositions by solve.host_eigh, LAPACK syevd, the routine of the JAX
+package's CPU eigh), the port with solve.host_eigh swapped for
+scipy.linalg.eigh(driver='evr') (MRRR, another LAPACK algorithm), and the
+JAX package (tests/oracle/day1000_seed1_lobo.npz, scripts/window_oracle.py
+lobo).  Prints, per alpha, the median and max per-entry relative
+difference and the summed-score relative difference of each pair, and the
+order sweep's scores and argmin against the oracle's.  The port's syevd
+against the oracle's (one routine, the statistics formed by two packages)
+sets chip_smoke phase 7's bars; evr against syevd shows how far a second
+correct algorithm lands from the same statistics, where the leave-one-out
+systems at small alpha carry modes at the gelsd cutoff.
 
-Usage:  python scripts/lobo_spread.py        (CPU, about three minutes)
+Usage:  python scripts/lobo_spread.py    (CPU, about two minutes on 8 cores)
 """
+import contextlib
 import sys
 import time
 from pathlib import Path
@@ -39,11 +42,24 @@ from volumetricinterp_tpu_torch import sweep  # noqa: E402
 
 
 def evr_eigh(X):
-    """solve.eigh by scipy's MRRR driver, matrix by matrix."""
+    """solve.host_eigh by scipy's MRRR routine, matrix by matrix (X on the
+    CPU)."""
     Xn = X.numpy().reshape((-1,) + X.shape[-2:])
     w, V = zip(*(scipy.linalg.eigh(x, driver="evr") for x in Xn))
     return (torch.as_tensor(np.stack(w)).reshape(X.shape[:-1]),
             torch.as_tensor(np.stack(V)).reshape(X.shape))
+
+
+@contextlib.contextmanager
+def evr():
+    """The sweep's decompositions by evr_eigh: solve.normalized_eigh looks
+    its default, solve.host_eigh, up at each call."""
+    shipped = solve.host_eigh
+    solve.host_eigh = evr_eigh
+    try:
+        yield
+    finally:
+        solve.host_eigh = shipped
 
 
 def stats(a, b):
@@ -65,14 +81,11 @@ def main():
     t0 = time.perf_counter()
     _, torch_per = sweep.lobo_cv(v, e, A, bidx, R, la, device="cpu")
     t1 = time.perf_counter()
-    shipped = solve.eigh
-    solve.eigh = evr_eigh
-    try:
+    with evr():
         _, evr_per = sweep.lobo_cv(v, e, A, bidx, R, la, device="cpu")
-    finally:
-        solve.eigh = shipped
-    print(f"torch eigh {t1 - t0:.1f} s, evr {time.perf_counter() - t1:.1f} s")
-    pairs = {"port vs oracle": (torch_per, o["per"]),
+    print(f"host_eigh (syevd) {t1 - t0:.1f} s, evr "
+          f"{time.perf_counter() - t1:.1f} s")
+    pairs = {"port (host_eigh, syevd) vs oracle": (torch_per, o["per"]),
              "port(evr) vs oracle": (evr_per, o["per"]),
              "port vs port(evr)": (torch_per, evr_per)}
     for name, (a, b) in pairs.items():
@@ -84,14 +97,11 @@ def main():
     orders = [tuple(int(x) for x in oi) for oi in o["orders"]]
     res = sweep.order_sweep(cs.MODEL_CFG, v, e, lat, lon, alt, bidx, orders,
                             la, device="cpu")
-    solve.eigh = evr_eigh
-    try:
+    with evr():
         res_evr = sweep.order_sweep(cs.MODEL_CFG, v, e, lat, lon, alt, bidx,
                                     orders, la, device="cpu")
-    finally:
-        solve.eigh = shipped
     for name, sc, ref in (
-            ("port vs oracle", res["scores"], o["scores"]),
+            ("port (host_eigh, syevd) vs oracle", res["scores"], o["scores"]),
             ("port(evr) vs oracle", res_evr["scores"], o["scores"]),
             ("port vs port(evr)", res["scores"], res_evr["scores"])):
         rel = np.abs(sc - ref) / np.abs(ref)

@@ -2,8 +2,8 @@
 eigendecomposition whose result becomes a fit's C, dC, chi^2 or alpha runs
 through solve.host_eigh (LAPACK float64 on the host), in every
 REGPARAM_MODE and method, in Interpolate's chunk pipeline, in the sharded
-layer and in Interpolate's reference-API methods; only the
-leave-one-beam-out sweep decomposes on the fit's device (solve.eigh).
+layer and in Interpolate's reference-API methods, and so does every one of
+the leave-one-beam-out sweep's.
 
 On the CPU both routes are LAPACK, so what is held here is the route and
 the count: eigh_matrices - host_eigh_matrices (the matrices decomposed on
@@ -11,7 +11,9 @@ the fit's device) is 0 on every fit path, and the host count a record is
 the one PERF.md §2 states for each mode.  The fits themselves are held
 against the JAX package by tests/test_torch_fit*.py."""
 
+import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -188,14 +190,15 @@ def test_reference_api_decomposes_on_the_host(small_config_text):
 
 
 def test_sweep_decomposes_on_the_device():
-    """lobo_cv keeps its decompositions on the fit's device (solve.eigh):
-    one a (record, beam, alpha), none through the host route."""
+    """lobo_cv decomposes nothing on the fit's device: its one
+    decomposition a (record, beam, alpha) takes the fit's host route
+    (tests/test_torch_sweep.py holds order_sweep's too)."""
     values, errors, A, R = make_records(2)
     beam = np.arange(A.shape[0]) % 4
     with Counted() as n:
         sweep.lobo_cv(values[:2], errors[:2], A, beam, R[0], [-20.0, -18.0],
                       device="cpu")
-    assert (n.card, n.host) == (2 * 4 * 2, 0)
+    assert (n.card, n.host) == (0, 2 * 4 * 2)
 
 
 def test_card_statistics_do_not_follow_the_batch():
@@ -246,3 +249,77 @@ def test_card_padding_is_dropped(route, monkeypatch):
         np.testing.assert_allclose(chi2, plain[2], rtol=1e-9)
         np.testing.assert_allclose(C, plain[0], rtol=1e-9,
                                    atol=1e-9 * np.nanmax(np.abs(plain[0])))
+
+
+FIT_TWICE = """
+import sys
+import numpy as np
+from volumetricinterp_tpu_torch import Interpolate
+from volumetricinterp_tpu_torch.config import Config
+from volumetricinterp_tpu_torch.io.amisr import qc_datasets
+from volumetricinterp_tpu_torch.io.synth import synthetic_amisr_datasets
+from volumetricinterp_tpu_torch.models.sphharmlag import Model
+
+text = sys.stdin.read()
+data = synthetic_amisr_datasets(smooth_in_model=Model(Config.from_text(text)),
+                                nrec=20, seed=5, nan_frac=0.03, bad_frac=0.01)
+
+
+class MemInterpolate(Interpolate):
+    def read_datafile(self, filename):
+        return qc_datasets(data, self.param, self.errlim, self.chi2lim,
+                           self.goodfitcode)
+
+
+fits = []
+for _ in range(2):
+    interp = MemInterpolate(text, device="cpu")
+    interp.calc_coeffs()
+    fits.append((interp.Coeffs, interp.chi_sq))
+print("EQUAL" if all(np.array_equal(a, b, equal_nan=True)
+                     for a, b in zip(*fits)) else "DIFFER")
+"""
+
+
+def test_fit_bits_do_not_follow_the_host_pools(small_config_text):
+    """The first fit of a fresh process, made before any host pool exists,
+    and a second one after: the same bits.  A pool worker's one-thread
+    limit must not reach Interpolate's chunk worker, started after the
+    first fit's pools, since a CPU product's bits follow its thread count
+    (8 threads here, where the statistics of tests/test_torch_end2end.py's
+    day come out in other bits than on one thread)."""
+    text = (small_config_text.replace("OUTPUTFILENAME = test_output.h5",
+                                      "OUTPUTFILENAME =")
+            + "\n[TPU]\nQUAD_MODE = gauss\nREGPARAM_MODE = exact_grid\n"
+            "CHUNK_SIZE = 8\n")
+    env = dict(_env(), OMP_NUM_THREADS="8")
+    res = subprocess.run([sys.executable, "-c", FIT_TWICE], input=text,
+                         capture_output=True, text=True, env=env,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.split()[-1] == "EQUAL"
+
+
+def test_host_pool_keeps_the_thread_count():
+    """A host pool's workers run on one intra-op thread each; the thread
+    that made the pool, and a thread started after it, keep the count they
+    had."""
+    counts = {}
+
+    def make_pool():
+        counts["caller"] = torch.get_num_threads()
+        pool = solve._host_pool()
+        counts["workers"] = {pool.submit(torch.get_num_threads).result()
+                             for _ in range(4 * solve.HOST_EIGH_THREADS)}
+        counts["caller after"] = torch.get_num_threads()
+
+    def later():
+        counts["later"] = torch.get_num_threads()
+
+    for target in (make_pool, later):
+        t = threading.Thread(target=target)
+        t.start()
+        t.join()
+    n = torch.get_num_threads()
+    assert counts == {"caller": n, "workers": {1}, "caller after": n,
+                      "later": n}

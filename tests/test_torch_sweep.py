@@ -110,3 +110,34 @@ def test_order_sweep_selects_as_jax(sweep_data, small_config_text):
     assert res["scores"].shape == (2, 3) and np.isfinite(res["scores"]).all()
     assert res["best_order"] == ref["best_order"]
     assert res["best_log10_alpha"] == ref["best_log10_alpha"]
+
+
+def test_order_sweep_decomposes_on_the_host(sweep_data, small_config_text):
+    """Every decomposition of order_sweep takes the fit's host route
+    (solve.host_eigh): one a (record, beam, alpha, order), and none through
+    solve.eigh outside it (lobo_cv's alone:
+    tests/test_torch_fit_route.py::test_sweep_decomposes_on_the_device)."""
+    d = sweep_data
+    e0, h0 = solve.eigh_matrices, solve.host_eigh_matrices
+    order_sweep(small_config_text, d["values"], d["errors"], d["lat"],
+                d["lon"], d["alt"], d["bidx"], [(2, 2), (2, 3)],
+                [-25.0, -23.0, -17.0], device="cpu")
+    host = solve.host_eigh_matrices - h0
+    assert (solve.eigh_matrices - e0 - host, host) == (0, 3 * 20 * 3 * 2)
+
+
+@pytest.mark.parametrize("records", [slice(0, 1), slice(0, 2), slice(1, 3)],
+                         ids=["first", "first-two", "last-two"])
+def test_lobo_record_subset_equals_the_whole(sweep_data, records):
+    """A record's held-out scores do not depend on the records called
+    with it: a subset called alone gives the same entries as the whole
+    call, to 0 (the same bits; per_beam_stats and the cutoff solves treat
+    each record on its own), at alphas with modes near the gelsd cutoff
+    (-25, -23), where one ulp of a statistic can move a score."""
+    d = sweep_data
+    la = [-25.0, -23.0, -17.0]
+    _, whole = lobo_cv(d["values"], d["errors"], d["A"], d["bidx"],
+                       d["psi"], la, device="cpu")
+    _, part = lobo_cv(d["values"][records], d["errors"][records], d["A"],
+                      d["bidx"], d["psi"], la, device="cpu")
+    np.testing.assert_array_equal(part, whole[records])

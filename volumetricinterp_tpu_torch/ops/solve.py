@@ -14,13 +14,16 @@ leading record axis:
 * Every eigendecomposition whose result becomes a fit's C, dC, chi^2 or
   alpha, in every mode and method, runs by ONE route, ``host_eigh``:
   LAPACK float64 on the host CPU, the results copied back to the fit's
-  device (the ``decompose=None`` default of normalized_eigh, whiten_pencil
-  and the solves built on them).  On the card that is a design choice, not
-  a fallback: it lands the fits where the JAX package's CPU float64
-  reference and a CPU run of the port land, whatever the batch's layout
-  (PERF.md).  The statistics, products, kept-block solves and anchored
-  rounds stay on the device.  ``eigh`` (cuSOLVER on the card) is the
-  leave-one-beam-out sweep's only (sweep.py).
+  device (normalized_eigh, whiten_pencil and the solves built on them),
+  and so does every one of the leave-one-beam-out sweep's (sweep.py, by
+  sym_pinv_apply).  On the card that is a design choice, not a fallback:
+  it lands the fits and the sweep's scores where the JAX package's CPU
+  float64 reference and a CPU run of the port land, whatever the batch's
+  layout (PERF.md).  The statistics, products, kept-block solves and
+  anchored rounds stay on the device.  ``eigh`` (cuSOLVER on the card) no
+  shipped path calls: scripts/fit_witness.py places a fit's sites on it
+  through the ``decompose`` argument of normalized_eigh, whiten_pencil,
+  cutoff_chi2_x and final_solve.
 * chi^2 uses the cancellation-free identity chi2 = btWb - u'z/s - C'(aR)C
   (u = V'AtWb, z the kept-mode solve, s the normalization scale).
 * M-shift ANCHORS (``make_anchor`` / ``anchor_chi2`` /
@@ -53,8 +56,9 @@ EPS64 = 2.220446049250313e-16  # the reference's f64 cutoff unit
 TINY64 = 2.2250738585072014e-308  # finfo(float64).tiny
 _LOG2_10 = 3.321928094887362
 # matrices decomposed by ``eigh`` and ``host_eigh`` since import, and the
-# wall seconds of ``host_eigh`` calls, copies included (chip_smoke.py reads
-# all three)
+# wall seconds of ``host_eigh`` calls: the copy to the host and LAPACK, not
+# the copy back to the card, which is queued without a wait (chip_smoke.py
+# reads all three)
 eigh_matrices = 0
 host_eigh_matrices = 0
 host_eigh_seconds = 0.0
@@ -73,16 +77,39 @@ def eigh(X):
     return torch.linalg.eigh(X)
 
 
+def _one_thread(started):
+    """A pool worker's initializer: one intra-op thread for this worker.
+    torch.set_num_threads also sets the count that threads started later
+    take up at their first parallel operation; _one_thread_pool puts its
+    caller's count back once every worker is past this."""
+    torch.get_num_threads()  # this worker takes up its count now, not later
+    torch.set_num_threads(1)
+    started.wait()
+
+
+def _one_thread_pool(nworkers):
+    """A pool of nworkers started threads, each with one intra-op thread;
+    every other thread keeps the caller's count (a CPU product's bits
+    follow the count)."""
+    nthreads = torch.get_num_threads()
+    started = threading.Barrier(nworkers + 1)
+    pool = ThreadPoolExecutor(nworkers, initializer=_one_thread,
+                              initargs=(started,))
+    for _ in range(nworkers):  # start every worker now
+        pool.submit(int)
+    started.wait()
+    torch.set_num_threads(nthreads)
+    return pool
+
+
 def _host_pool():
-    """The calling thread's pool of HOST_EIGH_THREADS workers, each with one
-    intra-op thread: Interpolate prepares the next chunk on a worker thread
-    while its main thread searches this one, and with a pool each neither
-    queues behind the other's decompositions."""
+    """The calling thread's pool of HOST_EIGH_THREADS one-thread workers:
+    Interpolate prepares the next chunk on a worker thread while its main
+    thread searches this one, and with a pool each neither queues behind
+    the other's decompositions."""
     pool = getattr(_pools, "pool", None)
     if pool is None:
-        pool = _pools.pool = ThreadPoolExecutor(
-            HOST_EIGH_THREADS, initializer=torch.set_num_threads,
-            initargs=(1,))
+        pool = _pools.pool = _one_thread_pool(HOST_EIGH_THREADS)
     return pool
 
 
@@ -93,7 +120,8 @@ def host_eigh(X):
     The fit engine's one decomposition: every eigendecomposition whose
     result becomes a fit's C, dC, chi^2 or alpha comes here, in every
     REGPARAM_MODE and method, on the card as on the CPU (normalized_eigh,
-    whiten_pencil and the solves built on them).  LAPACK resolves the
+    whiten_pencil and the solves built on them), and every one of the
+    leave-one-beam-out sweep's.  LAPACK resolves the
     near-null end of these matrices, the modes at the gelsd cutoff that set
     the exact search's floor and its staircase of roots, as the JAX
     package's CPU float64 reference does; the card's cuSOLVER resolved it
@@ -104,12 +132,21 @@ def host_eigh(X):
     global eigh_matrices, host_eigh_matrices, host_eigh_seconds
     t0 = time.perf_counter()
     n = X[..., 0, 0].numel()
-    Xh = X.detach().to("cpu").reshape((-1,) + X.shape[-2:])
+    Xh = X.detach().reshape((-1,) + X.shape[-2:])
+    # to and from the card through page-locked buffers (PyTorch's caching
+    # host allocator reuses them): pageable copies ran at ~3.5 GB/s, 0.54 s
+    # of a 1.83 s sweep call (PERF.md); the results go back without a wait
+    card = X.device.type == "cuda"
+    if card:
+        Xh = torch.empty(Xh.shape, dtype=X.dtype, pin_memory=True).copy_(Xh)
     parts = [p for p in torch.tensor_split(Xh, HOST_EIGH_THREADS) if len(p)]
     res = list(_host_pool().map(torch.linalg.eigh, parts))
-    w = torch.cat([r[0] for r in res]).reshape(X.shape[:-1])
-    V = torch.cat([r[1] for r in res]).reshape(X.shape)
-    w, V = w.to(X.device), V.to(X.device)
+    w = torch.empty(Xh.shape[:-1], dtype=X.dtype, pin_memory=card)
+    V = torch.empty(Xh.shape, dtype=X.dtype, pin_memory=card)
+    torch.cat([r[0] for r in res], out=w)
+    torch.cat([r[1] for r in res], out=V)
+    w = w.reshape(X.shape[:-1]).to(X.device, non_blocking=True)
+    V = V.reshape(X.shape).to(X.device, non_blocking=True)
     with _count_lock:
         eigh_matrices += n
         host_eigh_matrices += n
@@ -210,7 +247,9 @@ def norm_scale(X):
 
 def normalized_eigh(X, decompose=None):
     """(w, V, s): eigenpairs of X / s, s = norm_scale(X), by ``decompose``:
-    the fit's ``host_eigh`` when None, or ``eigh`` (the sweep's)."""
+    ``host_eigh`` when None (every shipped caller), or another
+    decomposition of the same signature (scripts/fit_witness.py's
+    placements)."""
     s = norm_scale(X)
     w, V = (decompose or host_eigh)(X / s[..., None, None])
     return w, V, s
@@ -240,17 +279,16 @@ def cutoff_chi2_x(AtWA, AtWb, btWb, aR, atau=None, decompose=None):
                            AtWA=AtWA)
 
 
-def sym_pinv_apply(X, y, rcond_factor=None, want_H=True, rcond_factor_H=None,
-                   decompose=None):
+def sym_pinv_apply(X, y, rcond_factor=None, want_H=True, rcond_factor_H=None):
     """Min-norm solve C = pinv(X) @ y for symmetric X, plus pinv(X), with
     the reference's dual cutoffs (gelsd eps*max for C, pinv N*eps*max for
-    H); batched over leading axes.  ``decompose``: as normalized_eigh's."""
+    H); batched over leading axes."""
     n = X.shape[-1]
     if rcond_factor is None:
         rcond_factor = EPS64
     if rcond_factor_H is None:
         rcond_factor_H = float(n) * EPS64
-    w, V, s = normalized_eigh(X, decompose)
+    w, V, s = normalized_eigh(X)
     w = w * s[..., None]
     Vty = (V.transpose(-1, -2) @ y[..., None])[..., 0]
     C = (V @ _kept_solve(w, Vty, rcond_factor)[..., None])[..., 0]

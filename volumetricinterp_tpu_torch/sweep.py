@@ -15,12 +15,13 @@ held-out score is chi2_b = C'AtWA_b C - 2 C'AtWb_b + btWb_b: no per-point
 work in the sweep.  The (record x beam x alpha) grid runs as one batch
 axis, in chunks of LOBO_CHUNK solves.
 
-The sweep's decompositions stay on the device (ops/solve.eigh, cuSOLVER on
-the card), unlike a fit's, which take the host LAPACK route: at the
-production order its held-out scores follow no one float64 solver (two
-LAPACK eighs put a summed score a factor 3.8 apart, PERF.md), so the
-host would buy no agreement, and it would cost ~12 s a sweep on 8 host
-threads.
+Every decomposition of the sweep takes the fit's route, ops/solve.host_eigh
+(LAPACK float64 on the host, by sym_pinv_apply): LAPACK's syevd is the JAX
+package's CPU eigh, and it keeps the held-out scores at the production
+order where the CPU port lands against the JAX CPU float64 reference, which
+the card's cuSOLVER did not (PERF.md).  The statistics, the leave-one-out
+subtraction, the alpha R shift, the cutoff solve's products and the
+held-out quadratic form stay on the device.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.solve import eigh, masked_points, sym_pinv_apply
+from .ops.solve import masked_points, sym_pinv_apply
 from .utils.device import check_device
 
 
@@ -58,8 +59,8 @@ LOBO_CHUNK = 1024  # solves a batch: ~0.2 GB of float64 144x144 matrices
 def _lobo_scores(stats, R, log10_alphas):
     """Held-out chi2 per (record, beam, alpha) [nrec, nbeam, nalpha] from
     ``per_beam_stats``; R [nb, nb] on the statistics' device.  One
-    eigendecomposition per entry, on the device (solve.eigh_matrices counts
-    them)."""
+    eigendecomposition per entry, on the host (solve.host_eigh_matrices
+    counts them)."""
     AtWA_b, AtWb_b, btWb_b, _ = stats
     nrec, nbeam = AtWA_b.shape[:2]
     alphas = torch.pow(10.0, torch.as_tensor(
@@ -73,7 +74,7 @@ def _lobo_scores(stats, R, log10_alphas):
         r, b, a = i // (nbeam * na), (i // na) % nbeam, i % na
         Ao, Bo = AtWA_b[r, b], AtWb_b[r, b]
         X = (AtWA[r] - Ao) + alphas[a, None, None] * R
-        C, _ = sym_pinv_apply(X, AtWb[r] - Bo, want_H=False, decompose=eigh)
+        C, _ = sym_pinv_apply(X, AtWb[r] - Bo, want_H=False)
         out[s:s + len(i)] = ((C * (Ao @ C[..., None])[..., 0]).sum(-1)
                              - 2.0 * (C * Bo).sum(-1) + btWb_b[r, b])
     return out.reshape(nrec, nbeam, na)
