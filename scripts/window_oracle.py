@@ -1,6 +1,7 @@
 #!/usr/bin/env python
 """Build tests/oracle/day1000_seed1_window64_<tag>.npz, or, for the tags
-timeaxis, radbasfun and lobo, tests/oracle/day1000_seed1_<tag>.npz.
+timeaxis, radbasfun, lobo and highorder_{exact,fast,lobo},
+tests/oracle/day1000_seed1_<tag>.npz (highorder_sweep: see below).
 
 The JAX package's CPU float64 fit of the first 64 records of the seed-1
 synthetic day (nrec=1000, nan_frac=0.03, bad_frac=0.01, basis-projected
@@ -44,10 +45,36 @@ per-entry held-out chi2 per [64, 20, 9], and order_sweep's score matrix
 over LOBO_ORDERS and its argmin.  lobo_cv runs 8 records at a time (its
 records are independent), which bounds the vmapped batch's memory.
 
+highorder_exact, highorder_fast: BASELINE config 3, the lmax=10 x 12
+radial basis (MAXK=12, MAXL=10, nbasis 1200; QUAD_MODE = gauss,
+0thorder: tests/test_highorder.py's HI_CFG) fitted in exact or fast mode
+by fit_records, HI_CHUNK records a call, on the first HI_NREC records of
+the seed-1 day: the day's geometry, and the QC'd value and error stored
+with tests/oracle/day1000_seed1_timeaxis.npz (the bytes chip_smoke.py
+feeds the port).  At 580 points against 1200 basis functions every record
+is underdetermined.  Stores C [128, 1200], chi2 [128] and reg [128, 1] in
+tests/oracle/day1000_seed1_highorder_<mode>.npz; no covariance (1.5 GB).
+
+highorder_lobo: the leave-one-beam-out sweep at that order on the first
+HI_LOBO_NREC records (the same bytes), over all 20 beams and
+HI_LOBO_ALPHAS, which bracket the highorder_exact oracle's alphas (log10
+-25.45 .. -23.65 on the first four records, -29.33 .. -22.72 on all 128,
+median -24.90), one record a call (a record's vmapped batch holds 180
+matrices of 1200 x 1200).  Stores per [4, 20, 9], the summed scores [9]
+and their argmin.
+
+highorder_sweep: tests/test_highorder.py's lambda sweep at that order, as
+that test runs it (a fresh model, 800 points from default_rng(7), W =
+1e-21, the JAX package's cutoff_chi2 at 15 log10 alphas in [-40, 0]), in
+tests/oracle/highorder_lambda_sweep.npz (log10_alphas, chi2).
+
 Wall time of one run on an 8-core x86 CPU host (JAX 0.9.0, float64, cold
 compile included): exact_grid not recorded; exact 65 s; fast 21 s; gcv
 62 s; timeaxis 1,928 s, beside other work on the same 8 cores; radbasfun
-and lobo as printed by the run (CHANGES.md).
+and lobo as printed by the run (CHANGES.md); highorder_exact 1,477 s,
+highorder_fast 712 s, highorder_lobo 1,695 s and highorder_sweep 248 s,
+each beside other work on the same 8 cores (the JAX package's float64
+eigendecompositions at n = 1200 run its deflation ladder).
 
 Usage:  JAX_PLATFORMS=cpu python scripts/window_oracle.py [tag]
         (default tag: exact_grid)
@@ -88,6 +115,10 @@ NAME = radbasfun
 LOBO_NREC = 64
 LOBO_ALPHAS = [float(a) for a in range(-35, -26)]
 LOBO_ORDERS = [(2, 3), (3, 5), (4, 6)]
+HI_CFG = CFG.replace("MAXK = 4", "MAXK = 12").replace("MAXL = 6", "MAXL = 10")
+HI_NREC, HI_CHUNK = 128, 16
+HI_LOBO_NREC = 4
+HI_LOBO_ALPHAS = [float(a) for a in range(-29, -20)]
 PROFILE = "chapman,1e11,300,50"
 TIME_COUPLING = 1e-4
 
@@ -203,12 +234,82 @@ def lobo():
           f"{LOBO_ORDERS[best[0]]}, log10 alpha {LOBO_ALPHAS[best[1]]}")
 
 
+def highorder_sweep():
+    """The highorder_sweep oracle (see the module docstring)."""
+    import jax.numpy as jnp
+
+    from volumetricinterp_tpu.config import Config
+    from volumetricinterp_tpu.models.sphharmlag import Model
+    from volumetricinterp_tpu.ops.solve import cutoff_chi2, suff_stats
+
+    t0 = time.perf_counter()
+    model = Model(Config.from_text(HI_CFG))
+    rng = np.random.default_rng(7)
+    npts = 800
+    lat = rng.uniform(74, 82, npts)
+    lon = rng.uniform(252, 272, npts)
+    alt = rng.uniform(1e5, 6e5, npts)
+    A = jnp.asarray(np.asarray(model.basis(lat, lon, alt)))
+    v = jnp.asarray(4e11 * np.exp(-(((alt - 3e5) / 1.2e5) ** 2)))
+    AtWA, AtWb, btWb, _ = suff_stats(A, v, jnp.full((npts,), 1e-21),
+                                     jnp.ones(npts))
+    psi = jnp.asarray(np.asarray(model.eval_psi()))
+    la = np.linspace(-40, 0, 15)
+    chi2 = [float(cutoff_chi2(10.0**a, AtWA, AtWb, btWb, psi)) for a in la]
+    out = os.path.join(ROOT, "tests", "oracle", "highorder_lambda_sweep.npz")
+    np.savez(out, log10_alphas=la, chi2=np.asarray(chi2))
+    print(f"{out}: {time.perf_counter() - t0:.1f} s")
+
+
+def highorder(mode):
+    """The highorder_<mode> oracles (see the module docstring)."""
+    from volumetricinterp_tpu.config import Config
+    from volumetricinterp_tpu.models.sphharmlag import Model
+    from volumetricinterp_tpu.ops.fit import fit_records
+    from volumetricinterp_tpu.sweep import lobo_cv
+
+    if mode == "sweep":
+        return highorder_sweep()
+    t0 = time.perf_counter()
+    lat, lon, alt, _, _, bidx = seed1_day(Model(Config.from_text(CFG)))
+    o = np.load(os.path.join(ROOT, "tests", "oracle",
+                             "day1000_seed1_timeaxis.npz"))
+    model = Model(Config.from_text(HI_CFG))
+    A = np.asarray(model.basis(lat, lon, alt))
+    R = np.asarray(model.eval_psi())
+    out = os.path.join(ROOT, "tests", "oracle",
+                       f"day1000_seed1_highorder_{mode}.npz")
+    if mode == "lobo":
+        v, e = o["value"][:HI_LOBO_NREC], o["error"][:HI_LOBO_NREC]
+        per = np.concatenate([
+            lobo_cv(v[r:r + 1], e[r:r + 1], A, bidx, R, HI_LOBO_ALPHAS)[1]
+            for r in range(HI_LOBO_NREC)])
+        scores = per.sum(axis=(0, 1))
+        np.savez(out, per=per, scores=scores, alphas=HI_LOBO_ALPHAS,
+                 best_log10_alpha=HI_LOBO_ALPHAS[int(np.argmin(scores))])
+    else:
+        v, e = o["value"][:HI_NREC], o["error"][:HI_NREC]
+        C, chi2, reg = [], [], []
+        for s in range(0, HI_NREC, HI_CHUNK):
+            c, _, x2, rp = fit_records(v[s:s + HI_CHUNK], e[s:s + HI_CHUNK],
+                                       A, R[None], method="chi2",
+                                       regparam_mode=mode)
+            C.append(np.asarray(c))
+            chi2.append(np.asarray(x2))
+            reg.append(np.asarray(rp))
+        np.savez(out, C=np.concatenate(C), chi2=np.concatenate(chi2),
+                 reg=np.concatenate(reg))
+    print(f"{out}: {time.perf_counter() - t0:.1f} s")
+
+
 def main(tag="exact_grid"):
     sys.path.insert(0, ROOT)
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
+    if tag.startswith("highorder_"):
+        return highorder(tag[len("highorder_"):])
     if tag in ("timeaxis", "radbasfun", "lobo"):
         return {"timeaxis": timeaxis, "radbasfun": radbasfun,
                 "lobo": lobo}[tag]()

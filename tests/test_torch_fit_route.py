@@ -189,7 +189,7 @@ def test_reference_api_decomposes_on_the_host(small_config_text):
         assert n.host == want if want else n.host > 2, name
 
 
-def test_sweep_decomposes_on_the_device():
+def test_sweep_decomposes_on_the_host():
     """lobo_cv decomposes nothing on the fit's device: its one
     decomposition a (record, beam, alpha) takes the fit's host route
     (tests/test_torch_sweep.py holds order_sweep's too)."""

@@ -116,7 +116,7 @@ def test_order_sweep_decomposes_on_the_host(sweep_data, small_config_text):
     """Every decomposition of order_sweep takes the fit's host route
     (solve.host_eigh): one a (record, beam, alpha, order), and none through
     solve.eigh outside it (lobo_cv's alone:
-    tests/test_torch_fit_route.py::test_sweep_decomposes_on_the_device)."""
+    tests/test_torch_fit_route.py::test_sweep_decomposes_on_the_host)."""
     d = sweep_data
     e0, h0 = solve.eigh_matrices, solve.host_eigh_matrices
     order_sweep(small_config_text, d["values"], d["errors"], d["lat"],

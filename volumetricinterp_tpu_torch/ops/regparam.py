@@ -38,7 +38,7 @@ from __future__ import annotations
 import torch
 
 from .solve import (EPS64, TINY64, _keep_mask, _mv, alpha_of_log,
-                    anchor_chi2, chi2_from_eig_x, cutoff_chi2_x,
+                    anchor_chi2, batched_inv, chi2_from_eig_x, cutoff_chi2_x,
                     deflated_diag, make_anchor, norm_scale, normalized_eigh,
                     project, select_anchor, sym_pinv_apply, whiten_pencil,
                     whitened_chi2)
@@ -513,7 +513,7 @@ def gcv_objective_anchored(a_log, bundle, b, W, mask):
     n = w.shape[-1]
     eye = torch.eye(n, dtype=M.dtype, device=M.device)
     Msc = torch.where(km, Mn / (sd[..., None, :] * sd[..., :, None]), eye)
-    Minv = torch.linalg.inv_ex(Msc + 1e-4 * eye)[0]
+    Minv = batched_inv(Msc + 1e-4 * eye)
     Minv = torch.where(km, Minv, torch.zeros_like(Minv))
     Tk = torch.where(keep[..., None, :], T / sd[..., None, :],
                      torch.zeros_like(T))

@@ -154,6 +154,41 @@ def host_eigh(X):
     return w, V
 
 
+def _split_over_pool(fn, X, *rest):
+    """fn(X, *rest) of a batch of matrices X [..., n, n] (rest batched
+    alike): on the card one call; on the CPU the batch split over the host
+    pool's one-thread workers, as host_eigh splits its batch.
+
+    The CPU's batched LU (MKL's getrf over a batch, under torch.linalg's
+    solve_ex and inv_ex) fails at n >= 256 once the calling thread's MKL
+    count is set or MKL's dynamic threading is off, both of which
+    torch.set_num_threads does (the latter for the whole process, and the
+    pool's workers call it): MKL reports "Parameter 6 was incorrect on
+    entry to DLASWP" and the call never returns (nbasis 1200, PERF.md).
+    On one thread it runs, with the bits of the batched call in a process
+    that never set a count."""
+    if X.device.type == "cuda":
+        return fn(X, *rest)
+    lead = X.shape[:-2]
+    flat = [x.reshape((-1,) + x.shape[len(lead):]) for x in (X,) + rest]
+    parts = [p for p in zip(*(torch.tensor_split(x, HOST_EIGH_THREADS)
+                              for x in flat)) if len(p[0])]
+    out = torch.cat(list(_host_pool().map(lambda p: fn(*p), parts)))
+    return out.reshape(lead + out.shape[1:])
+
+
+def batched_solve(A, B):
+    """torch.linalg.solve_ex(A, B)'s solution (inf/NaN for a singular
+    system, never a raise) of a batch, by ``_split_over_pool``."""
+    return _split_over_pool(lambda a, b: torch.linalg.solve_ex(a, b)[0], A, B)
+
+
+def batched_inv(A):
+    """torch.linalg.inv_ex(A)'s inverse of a batch, by
+    ``_split_over_pool``."""
+    return _split_over_pool(lambda a: torch.linalg.inv_ex(a)[0], A)
+
+
 def pow10_split(a_log):
     """10**a_log as (mantissa, exponent), the JAX package's pow10_split
     (solve.py:57-67): m = 2^(t - floor t), t = a log2(10), rounded to
@@ -402,7 +437,7 @@ def keep_solve(u, M, keep):
     eye = torch.eye(n, dtype=M.dtype, device=M.device)
     A = torch.where(km, M, eye)
     rhs = torch.where(keep, u, torch.zeros_like(u))
-    z = torch.linalg.solve_ex(A, rhs[..., None])[0][..., 0]
+    z = batched_solve(A, rhs[..., None])[..., 0]
     return torch.where(keep, z, torch.zeros_like(z))
 
 
@@ -530,7 +565,7 @@ def final_solve_anchor(anchor, a_log, AtWA, btWb):
     C = _mv(V, z) / s[:, None]
     kmH = keep_H[..., None, :] & keep_H[..., :, None]
     eye = torch.eye(n, dtype=M.dtype, device=M.device)
-    Minv = torch.linalg.inv_ex(torch.where(kmH, M, eye))[0]
+    Minv = batched_inv(torch.where(kmH, M, eye))
     Minv = torch.where(kmH, Minv, torch.zeros_like(Minv))
     G = (Vt @ (AtWA / s[:, None, None])) @ V
     dC = (V @ (Minv @ G @ Minv) @ Vt) / s[:, None, None]
