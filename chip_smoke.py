@@ -6,15 +6,18 @@
 Phases, one output line each (phase 3 one per shape), any failure exits
 non-zero:
   1. device   the card (nvidia-smi name and power limit), TF32 off;
-  2. build    nvcc builds, all at once, the kernel instantiation of the
-              production order and those of ORDER_CASES and HI_ORDER from
-              csrc/grid_eval.cu (seconds, registers, spills of each);
+  2. build    nvcc builds, all at once, the kernel instantiations of the
+              production order, of ORDER_CASES and of HI_ORDER, from
+              csrc/grid_eval.cu and, for the orders kernel_config routes
+              there (maxl 10), csrc/grid_eval_tiled.cu (seconds, registers,
+              spills of each);
   3. kernel   the grid-evaluation kernel against its plain twin at the
               production order (MAXK=4, MAXL=6, nbasis=144) at the shapes
               the main path launches (KERNEL_SHAPES): float32 kernel within
               5e-5 of the sup of the float64 twin, same NaN set; its time,
               the work the inputs need and the card's bound for that work;
-              then the same check at the ORDER_CASES orders;
+              then the same check at the ORDER_CASES orders ((10,16) on
+              the tiled kernel);
   4. fit      the main path's fit half: Interpolate.calc_coeffs in
               exact_grid mode over the first 64 records of the seed-1
               synthetic day, held against the JAX package's CPU float64 fits
@@ -107,12 +110,18 @@ non-zero:
               (d) lobo_cv on 4 records x 20 beams x 9 alphas against
               ..._highorder_lobo.npz (argmin, per-entry median); (e) 8 of
               the exact window's records on the config-4 grid with the FoV
-              mask through evaluate_records (the HI_ORDER instantiation)
-              against the float64 design path x C; (f) that kernel against
-              its float64 twin at config-4 x 8 (FoV-like mask) and 8.4M x 8,
-              its time, bound and share, and the fitted records printed.
-Then a JSON line with the kernels (the production instantiation with its
-launches on phases 4-10, the HI_ORDER one with phase 11's), and last
+              mask through evaluate_records (the tiled kernel's HI_ORDER
+              instantiation) against the float64 design path x C; (f) that
+              kernel against its float64 twin at config-4 x 8 (FoV-like
+              mask), 8.4M x 8, a keogram of 65,536 x 512 and config-4 x 1,
+              its time, bound and share at each (beside a float32 matmul of
+              the contraction's shape as a yardstick), the fitted records
+              printed, and the subset property: half the grid, the grid
+              under a cut-down mask and one record give the bits of the
+              whole launch.
+Then a JSON line with the kernels (the production instantiation of
+grid_eval.cu with its launches on phases 4-10, grid_eval_tiled.cu's
+HI_ORDER one with phase 11's), and last
 {"ok": true, "device": ...}.
 The coefficient file goes through h5py when it is installed; otherwise
 the same classes run on in-memory data (h5py: absent), as on the card,
@@ -229,10 +238,10 @@ KERNEL_SHAPES = (
     ("keogram 65536 x 512", (256, (262.0,), 256), 512, None),  # a day's meridian
 )
 # (maxl, maxk) orders whose instantiations the production order does not
-# run: no sin branch (maxl 1), maxk bucket 12, one point a thread at one
-# block an SM (maxl 10, maxk 16, four float4s a ceff row).  Each is held
-# against the twin on ORDER_AXES, a ragged point count, with and without
-# its last point (the scalar and the vector path).
+# run: no sin branch (maxl 1), maxk bucket 12, and the tiled kernel at
+# four float4s a coefficient row (maxl 10, maxk 16).  Each is held against
+# the twin on ORDER_AXES, a ragged point count (a partial last tile), with
+# and without its last point (grid_eval.cu's scalar and vector paths).
 ORDER_CASES = ((1, 1), (2, 9), (10, 16))
 ORDER_AXES, ORDER_NREC = (13, 17, 19), 5
 # phase 11: BASELINE config 3, the lmax=10 x 12 radial basis (nbasis 1200,
@@ -449,8 +458,8 @@ def ptxas_usage(log):
 
 def phase_build():
     """Builds the instantiations of the production order, of ORDER_CASES
-    and of HI_ORDER (phase 11), one nvcc each, all started together (no
-    later phase builds another)."""
+    and of HI_ORDER (phase 11), from both sources, one nvcc each, all
+    started together (no later phase builds another)."""
     model = Model(Config.from_text(MODEL_CFG))
     cfgs = [grid_eval_cuda.kernel_config(model.maxl, model.maxk)]
     cfgs += [grid_eval_cuda.kernel_config(*o)
@@ -464,8 +473,10 @@ def phase_build():
         check(log.exists(), f"no ptxas log beside {info['path']}")
         regs, spills = ptxas_usage(log.read_text())
         cfg = info["config"]
-        print(f"phase 2 build: maxl {cfg.maxl}, maxk bucket {cfg.maxkb}, "
-              f"{cfg.pt} points a thread, {cfg.minblocks} blocks an SM: "
+        print(f"phase 2 build: {cfg.source.name}, maxl {cfg.maxl}, maxk "
+              f"bucket {cfg.maxkb}, " + ("" if cfg.tiled else
+                                         f"{cfg.pt} points a thread, ")
+              + f"{cfg.minblocks} blocks an SM: "
               f"{info['seconds']:.1f} s nvcc, {regs} registers, {spills} "
               f"bytes of spill stores ({log.relative_to(ROOT)})", flush=True)
     print(f"phase 2 build: {len(infos)} instantiations in {wall:.1f} s",
@@ -546,7 +557,9 @@ def phase_kernel(device="cuda", shapes=KERNEL_SHAPES, reps=20):
         cfg = grid_eval_cuda.kernel_config(*order)
         print(f"phase 3 kernel, order (maxl, maxk) = {order}: {npts} and "
               f"{npts - 1} points x {ORDER_NREC} records, every 7th masked, "
-              f"degree {ev.degree}, {cfg.pt} points a thread: max|kernel - "
+              f"degree {ev.degree}, {cfg.source.name}"
+              + ("" if cfg.tiled else f", {cfg.pt} points a thread")
+              + ": max|kernel - "
               f"f64 twin| = " + ", ".join(f"{e / s:.3e}" for e, s in errs)
               + f" of sup (bar {KERNEL_TOL}), NaN sets equal", flush=True)
     return entry
@@ -1953,12 +1966,12 @@ def phase_highorder_product(interp, device="cuda", shape=(512, 512, 128),
     """Phase 11 (e): the exact window's first nrec records on the grid
     with the FoV mask through Estimate.evaluate_records (the kernel's
     HI_ORDER instantiation), against the float64 design path x C at 10^4
-    points.  Returns the kernel launches it made."""
+    points.  Returns the tiled kernel's launches it made."""
     est = mem_estimate(interp, device, "day1.h5")
     times = [EPOCH + dt.timedelta(seconds=float(t))
              for t in np.mean(est.time, axis=1)[:nrec]]
     glat, glon, galt = grid(*shape)
-    before = grid_eval_cuda.launches
+    before = grid_eval_cuda.tiled_launches
     _reset_peak(device)
     t0 = time.perf_counter()
     vol = est.evaluate_records(times, glat, glon, galt, check_hull=True)
@@ -1967,7 +1980,7 @@ def phase_highorder_product(interp, device="cuda", shape=(512, 512, 128),
     t0 = time.perf_counter()
     vol2 = est.evaluate_records(times, glat, glon, galt, check_hull=True)
     warm_s = time.perf_counter() - t0
-    launched = grid_eval_cuda.launches - before
+    launched = grid_eval_cuda.tiled_launches - before
     peak = _peak_gib(device)
     warm = {k: v - cold.get(k, 0.0) for k, v in est.timer.report().items()}
     check(vol.shape == (nrec,) + glat.shape and vol.dtype == np.float32,
@@ -2004,24 +2017,69 @@ def phase_highorder_product(interp, device="cuda", shape=(512, 512, 128),
     return launched
 
 
-HI_KERNEL_SHAPES = (("config-4 x 8 FoV", (512, 512, 128), "fov"),
-                    ("8.4M x 8", (512, 512, 32), None))
+# phase 11 (f): (label, grid axes, records, mask), as KERNEL_SHAPES: the
+# product's shape with 8 records, the first port's timing row, a day's
+# meridian keogram, and Estimate.grid_eval's one record
+HI_KERNEL_SHAPES = (
+    ("config-4 x 8 FoV", (512, 512, 128), 8, "fov"),
+    ("8.4M x 8", (512, 512, 32), 8, None),
+    ("keogram 65536 x 512", (256, (262.0,), 256), 512, None),
+    ("config-4 x 1", (512, 512, 128), 1, None),
+)
+
+
+def same_bits(got, want, what):
+    """got and want have the same NaN set and bit-equal values elsewhere."""
+    nan = torch.isnan(want)
+    check(torch.equal(torch.isnan(got), nan), f"{what}: NaN sets differ")
+    check(torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32)),
+          f"{what}: values differ from the whole launch's bits")
+
+
+def highorder_subsets(ev, pts32, ceff32, inside, out):
+    """The subset property on the card: half the grid (each half), the
+    grid under a mask cut down to two thirds of its points, and the first
+    record alone give the bits of the whole launch ``out``."""
+    npts = pts32[0].numel()
+    half = npts // 2
+    for sl in (slice(0, half), slice(half, npts)):
+        same_bits(grid_eval_cuda.eval_records(
+            *[p[sl] for p in pts32], ceff32, ev, inside[sl]), out[:, sl],
+            f"points {sl.start}..{sl.stop}")
+    cut = inside & (torch.arange(npts, device=inside.device) % 3 != 0)
+    same_bits(grid_eval_cuda.eval_records(*pts32, ceff32, ev, cut),
+              torch.where(cut, out, float("nan")), "the cut-down mask")
+    same_bits(grid_eval_cuda.eval_records(*pts32, ceff32[:1], ev, inside),
+              out[:1], "record 0 alone")
+    print(f"phase 11 highorder (f) subsets: points 0..{half} and {half}.."
+          f"{npts}, the mask cut to {int(cut.sum())} of {int(inside.sum())} "
+          f"points, record 0 alone (contraction TM "
+          f"{grid_eval_cuda.contraction_tm(grid_eval_cuda.kernel_config(*HI_ORDER), 1)}"
+          f" against {grid_eval_cuda.contraction_tm(grid_eval_cuda.kernel_config(*HI_ORDER), out.shape[0])}):"
+          " the bits of the whole launch", flush=True)
 
 
 def phase_highorder_kernel(C_fit, device="cuda", shapes=HI_KERNEL_SHAPES,
                            reps=10):
-    """Phase 11 (f): the HI_ORDER kernel against its float64 twin at the
-    product's shape (config-4 x 8 with the FoV-like mask) and at 8.4M x 8,
-    random records, within KERNEL_TOL of the sup, same NaN set; then the
-    exact window's fitted records at the product's shape, printed beside.
-    Returns the kernel's JSON entry (the first shape)."""
+    """Phase 11 (f): the HI_ORDER kernel against its float64 twin at each
+    of ``shapes``, random records, within KERNEL_TOL of the sup, same NaN
+    set; its time, bound and share, beside a float32 matmul of the
+    contraction's shape ([live points, maxl^2] x [maxl^2, records x maxk]:
+    a yardstick for the contraction alone, no call of the port); the subset
+    property at the first shape (on the card); then the exact window's
+    fitted records at the first shape (unless C_fit is None), printed.
+    Returns the kernel's JSON entry (the first shape's numbers, every
+    shape's under "shapes")."""
     cuda = device == "cuda"
     entry = None
+    rows = []
     cases = [s + (None,) for s in shapes]
-    cases.append((shapes[0][0] + ", fitted records", shapes[0][1],
-                  shapes[0][2], C_fit[:HI_PRODUCT_NREC]))
-    for label, axes, mask, Cs in cases:
-        nrec = HI_PRODUCT_NREC
+    if C_fit is not None:
+        label, axes, _, mask = shapes[0]
+        cases.append((label + ", fitted records", axes, HI_PRODUCT_NREC,
+                      mask, C_fit[:HI_PRODUCT_NREC]))
+    cfg = grid_eval_cuda.kernel_config(*HI_ORDER)
+    for label, axes, nrec, mask, Cs in cases:
         ev, pts32, pts64, ceff32, ceff64, inside = kernel_inputs(
             axes, nrec, mask, device, order=HI_ORDER, Cs=Cs)
         npts = pts32[0].numel()
@@ -2035,48 +2093,69 @@ def phase_highorder_kernel(C_fit, device="cuda", shapes=HI_KERNEL_SHAPES,
             sup = float(ref[~nan].abs().max())
             err = float((out.double() - ref)[~nan].abs().max())
         n_live = int((~torch.isnan(ref[0])).sum())
+        del ref
         flop, nbytes = kernel_work(ev, npts, nrec, n_live, inside is not None)
         b_ms, b_by = bound_ms(flop, nbytes)
         ms = cuda_ms(lambda: grid_eval_cuda.eval_records(
             *pts32, ceff32, ev, inside), reps) if cuda else float("nan")
         line = (f"phase 11 highorder (f) kernel {HI_ORDER}, {label}: {npts} "
-                f"points x {nrec} records, degree {ev.degree}, "
-                f"{ev.npairs} pairs, {n_live} live points, "
-                f"{len(grid_eval_cuda.record_chunks(grid_eval_cuda.kernel_config(*HI_ORDER), ev.degree, nrec))}"
-                f" launch(es): kernel {ms:.4f} ms; work {flop:.4e} flop, "
-                f"{nbytes:.4e} bytes, bound {b_ms:.4f} ms ({b_by}), share "
-                f"{b_ms / ms:.3f}; max|kernel - f64 twin| = {err / sup:.3e} "
-                f"of sup" + (f" (bar {KERNEL_TOL})" if Cs is None else
-                             " (fitted records: printed, held by (e))"))
+                f"points x {nrec} records, degree {ev.degree}, {ev.npairs} "
+                f"pairs, {n_live} live points, "
+                f"{len(grid_eval_cuda.record_chunks(cfg, ev.degree, nrec))} "
+                f"launch, contraction TM "
+                f"{grid_eval_cuda.contraction_tm(cfg, nrec)}: kernel "
+                f"{ms:.4f} ms; work {flop:.4e} flop, {nbytes:.4e} bytes, "
+                f"bound {b_ms:.4f} ms ({b_by}), share {b_ms / ms:.3f}; "
+                f"max|kernel - f64 twin| = {err / sup:.3e} of sup"
+                + (f" (bar {KERNEL_TOL})" if Cs is None else
+                   " (fitted records: printed, held by (e))"))
+        if Cs is None:
+            mm_ms = float("nan")
+            if cuda:
+                A = torch.randn(n_live, cfg.nrows, device=device)
+                B = torch.randn(cfg.nrows, nrec * ev.maxk, device=device)
+                mm_ms = cuda_ms(lambda: torch.matmul(A, B), reps)
+                del A, B
+            line += f"; float32 matmul [{n_live}, {cfg.nrows}] x " \
+                    f"[{cfg.nrows}, {nrec * ev.maxk}] {mm_ms:.4f} ms"
+            rows.append({"shape": label, "ms": ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "share": b_ms / ms,
+                         "max_abs_err": err, "matmul_ms": mm_ms})
         if entry is None:
             plain_ms = cuda_ms(lambda: grid_eval_cuda.eval_records_plain(
                 *pts32, ceff32, ev, inside), 1) if cuda else float("nan")
             line += f"; f32 twin {plain_ms:.4f} ms"
-            entry = {"name": f"grid_eval_records (maxl, maxk) = {HI_ORDER}",
-                     "route": "cuda",
-                     "source": "volumetricinterp_tpu_torch/csrc/grid_eval.cu",
+            entry = {"name": "grid_eval_tiled", "route": "cuda",
+                     "source": "volumetricinterp_tpu_torch/csrc/grid_eval_tiled.cu",
                      "replaces": "volumetricinterp_tpu/ops/grid_eval_pallas.py:94",
                      "launches": None, "max_abs_err": err, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "share": b_ms / ms, "library_ms": None}
+                     "share": b_ms / ms, "library_ms": None, "shapes": rows}
         print(line, flush=True)
-        del ev, pts32, pts64, ceff32, ceff64, inside, out, ref
+        if cuda and Cs is None and inside is not None:
+            highorder_subsets(ev, pts32, ceff32, inside, out)
+        del ev, pts32, pts64, ceff32, ceff64, inside, out
+        if cuda:
+            torch.cuda.empty_cache()
     return entry
 
 
 def phase_highorder(device="cuda", shape=(512, 512, 128),
                     finite_frac=FINITE_FRAC):
     """Phase 11: BASELINE config 3 through the port's main path; returns
-    the HI_ORDER kernel's JSON entry with its launches on this path."""
-    grid_eval_cuda.launches = 0
+    the HI_ORDER kernel's JSON entry with its launches on this path (all
+    of them grid_eval_tiled.cu's: none of grid_eval.cu)."""
+    grid_eval_cuda.launches = grid_eval_cuda.tiled_launches = 0
     interp = phase_highorder_fits(device)
     phase_highorder_lambda(device)
     phase_highorder_lobo(device)
     launched = phase_highorder_product(interp, device, shape,
                                        finite_frac=finite_frac)
-    launches = grid_eval_cuda.launches
-    check(launched > 0 and launches == launched,
-          f"phase 11: the product launched the kernel {launched} times")
+    launches = grid_eval_cuda.tiled_launches
+    check(launched > 0 and launches == launched
+          and grid_eval_cuda.launches == 0,
+          f"phase 11: the product launched the tiled kernel {launched} "
+          f"times, grid_eval.cu {grid_eval_cuda.launches} times")
     entry = phase_highorder_kernel(interp.Coeffs, device)
     entry["launches"] = launches
     return entry

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time the grid-evaluation kernel against the first port's kernel, on one GPU.
+"""Time a grid-evaluation kernel against the one it replaced, on one GPU.
 
     mkdir -p .smoke-ab && git show 425e202:volumetricinterp_tpu_torch/csrc/grid_eval.cu \\
         > .smoke-ab/old.cu
     python3 scripts/kernel_ab.py --old .smoke-ab/old.cu [--out ab.json]
+    python3 scripts/kernel_ab.py --highorder [--out ab.json]
 
 ``--old`` is a source with the first port's C interface (commit 425e202):
 vi_grid_eval_records taking coef [degree, npairs] with the pair degrees,
@@ -17,6 +18,14 @@ chip_smoke.kernel_work.  For both builds it prints static SASS counts
 (cuobjdump -sass) of the production kernel: all instructions, FFMA and
 LDS, in the whole kernel and in each loop body; ``--out`` writes it all as
 JSON.
+
+``--highorder`` does the same at BASELINE config 3's order, (maxl, maxk) =
+(10, 12), and chip_smoke.py's phase 11 (f) shapes (HI_KERNEL_SHAPES): the
+old side is grid_eval.cu's own (10, 12) instantiation, built here with
+grid_eval_cuda.nvcc and the defines it had before the tiled kernel took the
+order (one point a thread, one block an SM) and launched once per record
+chunk; the new side is grid_eval_tiled.cu through ``eval_records``.  It
+also prints whether the two give the same bits.
 """
 
 import argparse
@@ -120,10 +129,98 @@ def build_old(src):
     return evaluate, str(so), seconds
 
 
+def register_build(order):
+    """grid_eval.cu's own instantiation of ``order`` (KernelConfig with
+    tiled False, at the points a thread and blocks an SM its live state
+    gives), built and launched through grid_eval_cuda; returns (evaluate,
+    build info)."""
+    cfg = gec.KernelConfig(order[0], -(-order[1] // 4) * 4, 1)
+    info = gec.build(cfg)
+
+    def evaluate(lat, lon, alt, ceff, ev, inside):
+        out = torch.empty((ceff.shape[0], lat.shape[0]), dtype=torch.float32,
+                          device=lat.device)
+        gec.launch_records(cfg, lat, lon, alt, ceff, ev, inside, out)
+        return out
+
+    return evaluate, info
+
+
+def highorder(args, result):
+    """--highorder: grid_eval.cu's (10, 12) build against grid_eval_tiled.cu
+    at phase 11 (f)'s shapes, in turns."""
+    new_cfg = gec.kernel_config(*cs.HI_ORDER)
+    old_eval, old_info = register_build(cs.HI_ORDER)
+    new_info = gec.build(new_cfg)
+    for name, info, kernel in (("old", old_info, "grid_eval_kernel"),
+                               ("new", new_info, "grid_eval_tiled_kernel")):
+        regs, spills = cs.ptxas_usage(Path(info["log"]).read_text())
+        result["builds"][name] = {
+            "config": str(info["config"]), "seconds": info["seconds"],
+            "registers": regs, "spill_bytes": spills,
+            "sass": sass_counts(info["path"], kernel)}
+    print_builds(result)
+    variants = {"old": old_eval, "new": gec.eval_records}
+    for label, axes, nrec, mask in cs.HI_KERNEL_SHAPES:
+        ev, pts32, pts64, ceff32, ceff64, inside = cs.kernel_inputs(
+            axes, nrec, mask, "cuda", order=cs.HI_ORDER)
+        run_shape(args, result, variants, label, ev, pts32, pts64, ceff32,
+                  ceff64, inside)
+        del ev, pts32, pts64, ceff32, ceff64, inside
+        torch.cuda.empty_cache()
+
+
+def print_builds(result):
+    for name, b in result["builds"].items():
+        loops = [lp for lp in b["sass"]["loops"] if lp["FFMA"]]
+        print(f"build {name}: " + json.dumps(
+            {k: v for k, v in b.items() if k != "sass"}) + " sass " + json.dumps(
+            {k: v for k, v in b["sass"].items() if k != "loops"})
+            + " loops with FFMA " + json.dumps(loops), flush=True)
+
+
+def run_shape(args, result, variants, label, ev, pts32, pts64, ceff32, ceff64,
+              inside):
+    """Every variant against the float64 twin, then timed in turns (old,
+    new, new, old)."""
+    npts, nrec = pts32[0].numel(), ceff32.shape[0]
+    ref = gec.eval_records_plain(*pts64, ceff64, ev, inside)
+    n_live = int((~torch.isnan(ref[0])).sum())
+    flop, nbytes = cs.kernel_work(ev, npts, nrec, n_live, inside is not None)
+    b_ms, b_by = cs.bound_ms(flop, nbytes)
+    row = {"shape": label, "npts": npts, "nrec": nrec, "n_live": n_live,
+           "flop": flop, "bytes": nbytes, "bound_ms": b_ms,
+           "bound_by": b_by, "err_of_sup": {}, "ms": {k: [] for k in variants}}
+    outs = {}
+    for name, fn in variants.items():
+        outs[name] = fn(*pts32, ceff32, ev, inside)
+        err, sup = cs.held_against_twin(outs[name], ref, f"{name} {label}")
+        row["err_of_sup"][name] = err / sup
+    del ref
+    a, b = outs.values()
+    row["same_bits"] = bool(torch.equal(torch.isnan(a), torch.isnan(b)) and
+                            torch.equal(torch.nan_to_num(a).view(torch.int32),
+                                        torch.nan_to_num(b).view(torch.int32)))
+    del outs, a, b
+    for name in ("old", "new", "new", "old"):
+        row["ms"][name].append(cs.cuda_ms(
+            lambda: variants[name](*pts32, ceff32, ev, inside), args.reps))
+    print(f"{label}: bound {b_ms:.4f} ms ({b_by}); " + "; ".join(
+        f"{k} {' '.join(f'{t:.4f}' for t in v)} ms (share "
+        f"{b_ms / min(v):.3f}, err {row['err_of_sup'][k]:.3e} of sup)"
+        for k, v in row["ms"].items()) + f"; same bits {row['same_bits']}",
+        flush=True)
+    result["shapes"].append(row)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--old", required=True,
-                    help="a kernel source with the first port's C interface")
+    which = ap.add_mutually_exclusive_group(required=True)
+    which.add_argument("--old",
+                       help="a kernel source with the first port's C interface")
+    which.add_argument("--highorder", action="store_true",
+                       help="grid_eval.cu's (10, 12) build against the tiled "
+                            "kernel")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", help="write the results here as JSON")
     args = ap.parse_args()
@@ -134,6 +231,11 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip(), "builds": {},
         "shapes": []}
+    if args.highorder:
+        highorder(args, result)
+        if args.out:
+            Path(args.out).write_text(json.dumps(result, indent=1))
+        return
     info = gec.build(prod)
     regs, spills = cs.ptxas_usage(Path(info["log"]).read_text())
     old_eval, old_so, old_seconds = build_old(args.old)
@@ -143,37 +245,14 @@ def main():
         "new": {"config": str(prod), "seconds": info["seconds"],
                 "registers": regs, "spill_bytes": spills,
                 "sass": sass_counts(info["path"], "grid_eval_kernel")}}
-    for name, b in result["builds"].items():
-        loops = [lp for lp in b["sass"]["loops"] if lp["FFMA"]]
-        print(f"build {name}: " + json.dumps(
-            {k: v for k, v in b.items() if k != "sass"}) + " sass " + json.dumps(
-            {k: v for k, v in b["sass"].items() if k != "loops"})
-            + " loops with FFMA " + json.dumps(loops), flush=True)
+    print_builds(result)
     variants = {"old": old_eval, "new": gec.eval_records}
     for label, axes, nrec, mask in cs.KERNEL_SHAPES:
         ev, pts32, pts64, ceff32, ceff64, inside = cs.kernel_inputs(
             axes, nrec, mask, "cuda")
-        npts = pts32[0].numel()
-        ref = gec.eval_records_plain(*pts64, ceff64, ev, inside)
-        n_live = int((~torch.isnan(ref[0])).sum())
-        flop, nbytes = cs.kernel_work(ev, npts, nrec, n_live, inside is not None)
-        b_ms, b_by = cs.bound_ms(flop, nbytes)
-        row = {"shape": label, "npts": npts, "nrec": nrec, "n_live": n_live,
-               "flop": flop, "bytes": nbytes, "bound_ms": b_ms,
-               "bound_by": b_by, "err_of_sup": {}, "ms": {k: [] for k in variants}}
-        for name, fn in variants.items():
-            err, sup = cs.held_against_twin(
-                fn(*pts32, ceff32, ev, inside), ref, f"{name} {label}")
-            row["err_of_sup"][name] = err / sup
-        for name in ("old", "new", "new", "old"):
-            row["ms"][name].append(cs.cuda_ms(
-                lambda: variants[name](*pts32, ceff32, ev, inside), args.reps))
-        print(f"{label}: bound {b_ms:.4f} ms ({b_by}); " + "; ".join(
-            f"{k} {' '.join(f'{t:.4f}' for t in v)} ms (share "
-            f"{b_ms / min(v):.3f}, err {row['err_of_sup'][k]:.3e} of sup)"
-            for k, v in row["ms"].items()), flush=True)
-        result["shapes"].append(row)
-        del ev, pts32, pts64, ceff32, ceff64, inside, ref
+        run_shape(args, result, variants, label, ev, pts32, pts64, ceff32,
+                  ceff64, inside)
+        del ev, pts32, pts64, ceff32, ceff64, inside
         torch.cuda.empty_cache()
     if args.out:
         Path(args.out).write_text(json.dumps(result, indent=1))

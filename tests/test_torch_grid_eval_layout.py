@@ -114,12 +114,13 @@ def test_packed_layout_matches_twin(small_config_text, maxl, maxk):
 
 
 def test_kernel_config_points_per_thread():
-    # the production order keeps two points a thread; maxl=10 keeps one
+    # the production order keeps two points a thread; maxl=10, whose live
+    # state would force one block an SM, goes to the tiled kernel
     assert gec.kernel_config(6, 4) == gec.KernelConfig(6, 4, 2)
     assert gec.kernel_config(3, 2) == gec.KernelConfig(3, 4, 2)
-    assert gec.kernel_config(10, 16) == gec.KernelConfig(10, 16, 1)
+    assert gec.kernel_config(10, 16) == gec.KernelConfig(10, 16, 1, True)
     assert gec.kernel_config(6, 4).minblocks == 2
-    assert gec.kernel_config(10, 16).minblocks == 1
+    assert gec.kernel_config(10, 16).minblocks == 2
     # more than one point a thread only where the launch bounds still keep
     # two blocks an SM; the build passes them to the kernel
     for maxl in range(1, gec.MAX_L + 1):
@@ -128,7 +129,7 @@ def test_kernel_config_points_per_thread():
             assert cfg.pt in (1, 2)
             assert cfg.pt == 1 or cfg.minblocks == 2
             assert f"-DVI_MINBLOCKS={cfg.minblocks}" in gec.defines(cfg)
-            assert f"-DVI_PT={cfg.pt}" in gec.defines(cfg)
+            assert (f"-DVI_PT={cfg.pt}" in gec.defines(cfg)) != cfg.tiled
 
 
 @pytest.mark.parametrize("maxl,maxk,degree,nrec", [
@@ -139,12 +140,15 @@ def test_record_chunks_cover_records_within_budget(maxl, maxk, degree, nrec):
     assert [r0 for r0, _ in chunks] == list(
         np.cumsum([0] + [n for _, n in chunks[:-1]]))
     assert sum(n for _, n in chunks) == nrec
-    assert all(n >= 1 and cfg.smem_bytes(degree, n) <= gec.SMEM_BUDGET
+    # the tiled kernel (maxl 10) takes every record in one launch within
+    # what a block may take; grid_eval.cu's chunks stay in its budget
+    budget = gec.SMEM_MAX if cfg.tiled else gec.SMEM_BUDGET
+    assert all(n >= 1 and cfg.smem_bytes(degree, n) <= budget
                for _, n in chunks)
     # a chunk is full unless it is the last
     per = chunks[0][1]
     assert all(n == per for _, n in chunks[:-1])
-    assert per == nrec or cfg.smem_bytes(degree, per + 1) > gec.SMEM_BUDGET
+    assert per == nrec or cfg.smem_bytes(degree, per + 1) > budget
     # each chunk's tables start 16-byte aligned in the packed ceff
     assert all(r0 * 2 * cfg.npairs * cfg.maxkb * 4 % 16 == 0
                for r0, _ in chunks)

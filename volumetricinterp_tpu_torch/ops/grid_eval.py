@@ -146,6 +146,9 @@ class GridEvaluator(_Evaluator):
             self.table.coef, dtype=dtype, device=self.device).contiguous()
         self.coef_packed = grid_eval_cuda.pack_coef(self.coef_device,
                                                     self.pair_degree)
+        # the mbar > 0 pairs, whose sin rows the tiled kernel reads
+        self.sin_pairs = torch.as_tensor(np.flatnonzero(self.mbar_pair > 0),
+                                         device=self.device)
 
         self._scale = model._kvm * model._negm_scale
         self._k_n = model._k
