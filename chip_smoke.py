@@ -99,26 +99,42 @@ non-zero:
               points) against tests/oracle/ref_impl.py (the GCV root stored
               by scripts/api_oracle.py);
  11. highorder BASELINE config 3, the lmax=10 x 12 radial basis (HI_ORDER,
-              nbasis 1200), its kernel launches counted from 0: (a) the
-              basis against the NumPy oracle; (b) the first 128 records of
-              the seed-1 day through Interpolate.calc_coeffs in exact and
-              fast mode against the JAX CPU float64 oracles
-              (tests/oracle/day1000_seed1_highorder_{exact,fast}.npz): NaN
-              set, no negative chi2, chi2 and W-weighted field bars, host
-              and card eighs, records/s, peak device and page-locked
-              memory; (c) tests/test_highorder.py's lambda sweep, monotone;
-              (d) lobo_cv on 4 records x 20 beams x 9 alphas against
-              ..._highorder_lobo.npz (argmin, per-entry median); (e) 8 of
-              the exact window's records on the config-4 grid with the FoV
+              nbasis 1200), its kernel launches counted from 0, every
+              fit on the oracles' own QC'd bytes: (a) the basis against the
+              NumPy oracle, then the whole 1000-record seed-1 day through
+              Interpolate.calc_coeffs in exact mode (8 chunks, the last
+              padded from 104 to 128 records): no NaN beyond the QC'd empty
+              records, no negative chi2, 0 card and 4.097 host eighs a
+              record, records 0-127 and 896-999 against the JAX CPU float64
+              oracles (tests/oracle/day1000_seed1_highorder_{exact,
+              exact_tail}.npz: NaN set, chi2 and W-weighted field bars);
+              seconds, records/s, host_eigh seconds, peak device,
+              page-locked and host memory, each line with the card's name
+              and power limit; (b) through calc_coeffs, fast mode on the
+              first 128 records, GCV (REGULARIZATION_METHOD = gcv) on 32
+              and exact_grid on 8, each against its JAX oracle (...
+              _highorder_{fast,gcv,exact_grid}.npz: NaN set, no negative
+              chi2, W-weighted field bars; chi2 to the fit bars in fast and
+              to its max in exact_grid), then tests/test_highorder.py's
+              lambda sweep, monotone; (c) the day's keogram: all 1000 fitted
+              records at the 65,536 meridian points through
+              Estimate.evaluate_records, one launch of the tiled kernel,
+              against the float64 twin: the same NaN set, each point within
+              5e-5 of its record's sup plus 1e-6 of its gross sum (phase
+              5's bar for fitted records); (d) lobo_cv on 4 records x 20
+              beams x 9 alphas against ..._highorder_lobo.npz (argmin,
+              per-entry median);
+              (e) 8 of the day's records on the config-4 grid with the FoV
               mask through evaluate_records (the tiled kernel's HI_ORDER
               instantiation) against the float64 design path x C; (f) that
               kernel against its float64 twin at config-4 x 8 (FoV-like
-              mask), 8.4M x 8, a keogram of 65,536 x 512 and config-4 x 1,
-              its time, bound and share at each (beside a float32 matmul of
-              the contraction's shape as a yardstick), the fitted records
-              printed, and the subset property: half the grid, the grid
-              under a cut-down mask and one record give the bits of the
-              whole launch.
+              mask), 8.4M x 8, keograms of 65,536 x 512 and x 1000 and
+              config-4 x 1, its time, bound and share at each (beside a
+              float32 matmul of the contraction's shape as a yardstick), the
+              fitted records printed, and the subset property: half the
+              grid, the grid under a cut-down mask and one record give the
+              bits of the whole launch.  Last the page-locked memory held,
+              against solve.host_eigh's slice bound.
 Then a JSON line with the kernels (the production instantiation of
 grid_eval.cu with its launches on phases 4-10, grid_eval_tiled.cu's
 HI_ORDER one with phase 11's), and last
@@ -136,6 +152,7 @@ import importlib.util
 import io
 import json
 import re
+import resource
 import subprocess
 import sys
 import tempfile
@@ -245,16 +262,29 @@ KERNEL_SHAPES = (
 ORDER_CASES = ((1, 1), (2, 9), (10, 16))
 ORDER_AXES, ORDER_NREC = (13, 17, 19), 5
 # phase 11: BASELINE config 3, the lmax=10 x 12 radial basis (nbasis 1200,
-# tests/test_highorder.py's HI_CFG) on the first HI_NREC records of the
-# seed-1 day, one solve.CARD_BATCH, against the JAX CPU float64 oracles of
-# scripts/window_oracle.py highorder_{exact,fast,lobo}.  At 580 points
-# every record is underdetermined; the fits are held to the fit bars
-# above, lobo_cv's argmin to the oracle's and its per-entry median to
-# about three times the CPU port's distance (phase_highorder_lobo("cpu")
-# on an 8-core CPU: 3.4120e-3; the columns at log10 alpha -29..-26, where
-# the leave-one-out systems keep modes at the gelsd cutoff, 0.026-0.083)
+# tests/test_highorder.py's HI_CFG) on the seed-1 day, against the JAX CPU
+# float64 oracles of scripts/window_oracle.py highorder_*: the whole day in
+# exact mode, its first HI_NREC records (one solve.CARD_BATCH) and its last
+# chunk's from HI_TAIL held to highorder_exact and highorder_exact_tail;
+# the windows of HI_WINDOWS.  At 580 points every record is
+# underdetermined; the fits are held to the fit bars above, lobo_cv's
+# argmin to the oracle's and its per-entry median to about three times the
+# CPU port's distance (phase_highorder_lobo("cpu") on an 8-core CPU:
+# 3.4120e-3; the columns at log10 alpha -29..-26, where the leave-one-out
+# systems keep modes at the gelsd cutoff, 0.026-0.083)
 HI_ORDER = (10, 12)  # (maxl, maxk)
 HI_NREC, HI_LOBO_NREC, HI_PRODUCT_NREC = 128, 4, 8
+HI_TAIL = 896
+# phase 11 (b): (oracle tag, REGULARIZATION_METHOD, REGPARAM_MODE, records)
+HI_WINDOWS = (("fast", "chi2", "fast", 128), ("gcv", "gcv", "exact", 32),
+              ("exact_grid", "chi2", "exact_grid", 8))
+# phase 11 (c): the day's meridian keogram, HI_KERNEL_SHAPES' axes
+HI_KEOGRAM = (256, (262.0,), 256)
+# page-locked buffers solve.host_eigh may hold at once: a slice's matrices
+# and its results, and the results of the slice before on their way to the
+# card, in each of calc_coeffs' two calling threads (the search's and the
+# look-ahead worker's)
+PINNED_SLICES = 2 * 3
 HI_SWEEP = np.linspace(-40.0, 0.0, 15)  # test_highorder.py's lambda sweep
 HI_SWEEP_SLACK = 0.02  # and its slack, plus 1e-6 of the largest value
 HI_ORACLE_TOL = 2e-7  # of each column's sup where scipy does not underflow
@@ -320,6 +350,9 @@ try:
     HAVE_H5PY = True
 except ImportError:
     HAVE_H5PY = False
+
+
+CARD = "cpu"  # nvidia-smi's name and power limit, once phase 1 has run
 
 
 def check(cond, msg):
@@ -440,7 +473,9 @@ def phase_device():
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(smi.splitlines()[0])
+    global CARD
+    CARD = smi.splitlines()[0]
+    print(CARD)
     print(f"phase 1 device: {torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}, allow_tf32 "
           f"matmul={torch.backends.cuda.matmul.allow_tf32} "
@@ -689,17 +724,18 @@ def qc(data):
     return qc_datasets(data, "dens", [1e10, 1e13], [0.1, 10.0], [1, 2, 3, 4])
 
 
-def wfield(fit, C_ref, nwin):
-    """The W-weighted field residual of the fit's first nwin records
-    against C_ref (docs/PARITY_NOTES.md #7): |sw A (C - C_ref)| / |sw A
-    C_ref| per record, sw = 1/error on the record's valid points; NaN on
-    the records C_ref leaves NaN."""
+def wfield(fit, C_ref, nwin, start=0):
+    """The W-weighted field residual of the fit's nwin records from
+    ``start`` against C_ref (docs/PARITY_NOTES.md #7): |sw A (C - C_ref)| /
+    |sw A C_ref| per record, sw = 1/error on the record's valid points; NaN
+    on the records C_ref leaves NaN."""
     interp = fit["interp"]
     _, lat, lon, alt, value, error = interp.read_datafile(interp.filename)
     A = interp.model.basis(lat, lon, alt)
-    ok = np.isfinite(value[:nwin])
-    sw = ok / np.where(ok, error[:nwin], 1.0)
-    C = fit["C"][:nwin]
+    rows = slice(start, start + nwin)
+    ok = np.isfinite(value[rows])
+    sw = ok / np.where(ok, error[rows], 1.0)
+    C = fit["C"][rows]
     return (np.linalg.norm(sw * ((C - C_ref) @ A.T), axis=1)
             / np.linalg.norm(sw * (C_ref @ A.T), axis=1))
 
@@ -757,6 +793,18 @@ def eighs_line(fit, nrec, device):
             f"host_eigh)")
 
 
+def grid_eighs(interp, nwin, device, reg, start=0):
+    """The host eighs of an exact_grid fit of nwin records from ``start``
+    (regparam.chi2_reg_param_grid): the 101 grid points of each record
+    with points (the card's padding and an empty record have none), 40
+    bisection rounds for each root, the final solve of each record, the
+    padding's too."""
+    value = interp.read_datafile(interp.filename)[4][start:start + nwin]
+    live = int(np.isfinite(value).any(1).sum())
+    return (regparam.N_GRID * live + fitted(nwin, device)
+            + regparam.N_BISECT * int((reg > 0).sum()))
+
+
 def phase_fit(workdir, device="cuda", nwin=64, day=DAY):
     """Phase 4, exact_grid over the first nwin records."""
     fit = fit_day(workdir, device, "chi2", "exact_grid", nwin, day)
@@ -782,11 +830,10 @@ def phase_fit(workdir, device="cuda", nwin=64, day=DAY):
                  WFIELD_MEDIAN_TOL, WFIELD_MAX_TOL)
     check(rel_g.max() <= CHI2_MAX_TOL, f"chi2 vs the exact_grid oracle: max "
           f"{rel_g.max():.3e} (record {int(rel_g.argmax())})")
-    from volumetricinterp_tpu_torch.ops.regparam import N_BISECT
-
-    # on the host the 101 grid points and 40 bisection rounds a record with
-    # a root, and the final solve; none on the card
-    want = fitted(nwin, device) * (101 + 1) + N_BISECT * int((reg > 0).sum())
+    # on the host the 101 grid points of a record with points, 40
+    # bisection rounds a record with a root, and the final solve of every
+    # record and of the card's padding; none on the card
+    want = grid_eighs(fit["interp"], nwin, device, reg)
     check_eighs("exact_grid", fit, want)
     fit_rec_s = fit["fit_rec_s"]
     print(f"phase 4 fit: h5py: {'present' if HAVE_H5PY else 'absent'}; "
@@ -1796,11 +1843,12 @@ def hi_model():
     return Model(Config.from_text(model_cfg(HI_ORDER)))
 
 
-def hi_fit(mode, device, day=DAY, nrec=HI_NREC):
+def hi_fit(mode, device, day=DAY, nrec=HI_NREC, method="chi2"):
     """The first nrec records of the seed-1 day (the oracles' own QC'd
-    bytes, as phase 6) fitted at HI_ORDER in ``mode`` through
-    Interpolate.calc_coeffs, in memory.  Returns the interp, its seconds,
-    (card eighs, host eighs, host_eigh seconds) and peak device memory."""
+    bytes, as phase 6) fitted at HI_ORDER in ``method`` and ``mode``
+    through Interpolate.calc_coeffs, in memory.  Returns the interp, its
+    seconds, (card eighs, host eighs, host_eigh seconds) and peak device
+    memory."""
     data = day_data(day)
     value, error = oracle_day(day["nrec"])
 
@@ -1809,7 +1857,7 @@ def hi_fit(mode, device, day=DAY, nrec=HI_NREC):
             ut, lat, lon, alt, _, _ = qc(data)
             return ut, lat, lon, alt, value, error
 
-    text = FIT_CFG.format(raw="day1.h5", out="", method="chi2", mode=mode,
+    text = FIT_CFG.format(raw="day1.h5", out="", method=method, mode=mode,
                           extra="").replace(MODEL_CFG, model_cfg(HI_ORDER))
     start = EPOCH + dt.timedelta(seconds=day["t0"])
     end = start + dt.timedelta(seconds=day["cadence"] * nrec)
@@ -1823,10 +1871,42 @@ def hi_fit(mode, device, day=DAY, nrec=HI_NREC):
     return interp, secs, eighs_since(c0), _peak_gib(device)
 
 
-def phase_highorder_fits(device="cuda"):
-    """Phase 11 (a)-(b): the basis against the NumPy oracle, then the
-    window in exact and fast mode against the JAX oracles; returns the
-    exact fit's Interpolate."""
+def held_to_hi_oracle(what, interp, tag, start=0, nrec=None):
+    """The fit's records from ``start`` against the JAX oracle
+    tests/oracle/day1000_seed1_highorder_<tag>.npz (its rows begin at
+    ``start``; its first nrec, all when None): the NaN set and no negative
+    chi2, the W-weighted field to the fit bars; returns (chi2 rel, field,
+    |dlog10 alpha|) and a line of them."""
+    o = np.load(ROOT / "tests" / "oracle"
+                / f"day1000_seed1_highorder_{tag}.npz")
+    check(int(o["start"] if "start" in o else 0) == start,
+          f"{tag}: the oracle's rows begin elsewhere")
+    n = len(o["chi2"]) if nrec is None else nrec
+    rows = slice(start, start + n)
+    C, chi2 = interp.Coeffs[rows], interp.chi_sq[rows]
+    reg = interp.reg_params[rows, 0]
+    C_o, chi2_o, reg_o = o["C"][:n], o["chi2"][:n], o["reg"][:n, 0]
+    nan = np.isnan(chi2)
+    check(np.array_equal(nan, np.isnan(chi2_o)),
+          f"{what}: NaN set differs from its oracle")
+    check(np.isfinite(C[~nan]).all() and (chi2[~nan] >= 0).all(),
+          f"{what}: non-finite coefficients or negative chi2")
+    rel = np.abs(chi2 - chi2_o) / chi2_o
+    wf = wfield(dict(interp=interp, C=interp.Coeffs), C_o, n, start)
+    dla = dlog10(reg, reg_o)
+    wf_med, wf_max = held_to_bars(f"{what}: W-weighted field vs its oracle",
+                                  wf, WFIELD_MEDIAN_TOL, WFIELD_MAX_TOL)
+    line = (f"records {start}..{start + n - 1} vs {tag} oracle: "
+            f"{int(nan.sum())} NaN as the oracle; chi2 rel median "
+            f"{np.nanmedian(rel):.4e} max {np.nanmax(rel):.4e}, W-weighted "
+            f"field median {wf_med:.4e} max {wf_max:.4e}, |dlog10 alpha| "
+            f"median {np.median(dla):.4e} max {dla.max():.4e} (printed, not "
+            f"held)")
+    return rel, wf, dla, line
+
+
+def phase_highorder_basis():
+    """Phase 11 (a), first: the basis against the NumPy oracle."""
     model = hi_model()
     ref = oracle_module()
     rng = np.random.default_rng(5)  # test_highorder.py's points
@@ -1845,53 +1925,119 @@ def phase_highorder_fits(device="cuda"):
           f"{err:.3e} of a column's sup over {int(live.sum())} columns "
           f"({int((~live).sum())} where scipy underflows; bar "
           f"{HI_ORACLE_TOL})", flush=True)
-    fits = {}
-    for mode, per_rec in (("exact", EXACT_EIGHS), ("fast", 3)):
-        interp, secs, (card, host, host_s), peak = hi_fit(mode, device)
-        fits[mode] = interp
-        C, chi2 = interp.Coeffs, interp.chi_sq
+
+
+def phase_highorder_day(device="cuda", day=DAY,
+                        windows=(("exact", 0, None),
+                                 ("exact_tail", HI_TAIL, None))):
+    """Phase 11 (a): the day's nrec records in exact mode through
+    Interpolate.calc_coeffs: no NaN beyond the QC'd empty records, no
+    negative chi2, 0 card and 4 host eighs a record (each chunk padded to
+    128 on the card) and R's once; ``windows`` (oracle tag, first record,
+    records or None for the oracle's) held to their JAX oracles.  Returns
+    the fit's Interpolate."""
+    nrec = day["nrec"]
+    interp, secs, (card, host, host_s), peak = hi_fit("exact", device, day,
+                                                      nrec)
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    C, chi2 = interp.Coeffs, interp.chi_sq
+    prof = interp.timer.report()
+    fit_s, copy_s = prof["fit_records"], prof["copy_to_host"]
+    value, _ = oracle_day(nrec)
+    empty = ~np.isfinite(value).any(1)
+    nan = np.isnan(chi2)
+    want = EXACT_EIGHS * fitted(nrec, device) + 1
+    print(f"phase 11 highorder (a) day, exact: Interpolate.calc_coeffs of "
+          f"{nrec} records (the oracle's QC'd bytes, chunks "
+          f"{chunk_sizes(nrec)}) {secs:.3f} s, of which fit_records "
+          f"{fit_s:.3f} s = {nrec / fit_s:.3f} records/s and the copies of "
+          f"C, dC, chi2 and alpha to the host {copy_s:.3f} s [{CARD}]",
+          flush=True)
+    print(f"phase 11 highorder (a) day eighs: card {card / nrec:.3f}, host "
+          f"{host / nrec:.3f} a record ({host} = {EXACT_EIGHS} x "
+          f"{fitted(nrec, device)} records with the card's padding + R's "
+          f"once), host_eigh {host_s:.3f} s = "
+          f"{host_s / max(host, 1) * 1e3:.2f} ms a matrix of 1200 x 1200 "
+          f"[{CARD}]", flush=True)
+    print(f"phase 11 highorder (a) day memory: peak device {peak:.3f} GiB, "
+          f"peak host RSS {rss:.3f} GiB (the day's covariance "
+          f"{interp.Covariance.nbytes / 2**30:.3f} GiB) [{CARD}]", flush=True)
+    if device == "cuda":
+        print_pinned(f"after phase 11's day [{CARD}]")
+    check(C.shape == (nrec, 1200) and chi2.shape == (nrec,),
+          f"day: C {C.shape}, chi2 {chi2.shape}")
+    check(not (nan & ~empty).any(),
+          f"day: NaN records {np.flatnonzero(nan & ~empty).tolist()} have "
+          "data")
+    check(np.isfinite(C[~nan]).all() and (chi2[~nan] >= 0).all(),
+          f"day: non-finite coefficients or {int((chi2[~nan] < 0).sum())} "
+          "negative chi2")
+    check(card == 0 and host == want,
+          f"day: {card} eighs on the card, {host} on the host; 0 and {want} "
+          "expected")
+    for tag, start, n in windows:
+        what = f"order {HI_ORDER} day, {tag}"
+        rel, _, _, line = held_to_hi_oracle(what, interp, tag, start, n)
+        held_to_bars(f"{what}: chi2 vs its oracle", rel, CHI2_MEDIAN_TOL,
+                     CHI2_MAX_TOL)
+        print(f"phase 11 highorder (a) day {line}", flush=True)
+    print(f"phase 11 highorder (a) day: {int(nan.sum())} NaN records, all "
+          f"QC'd empty ({int(empty.sum())} empty), 0 negative chi2",
+          flush=True)
+    return interp
+
+
+def phase_highorder_windows(device="cuda", windows=HI_WINDOWS):
+    """Phase 11 (b): the windows of HI_WINDOWS through calc_coeffs, each
+    against its JAX oracle: NaN set, no negative chi2, the W-weighted field
+    bars; chi2 to the fit bars in fast mode and to their max in exact_grid
+    (phase 4's), printed in gcv (phase 4c's); host eighs a record (the
+    card's padding to 128 records included) and none on the card."""
+    for tag, method, mode, nrec in windows:
+        interp, secs, (card, host, host_s), peak = hi_fit(mode, device,
+                                                          nrec=nrec,
+                                                          method=method)
+        what = f"order {HI_ORDER} {tag}"
+        rel, _, _, line = held_to_hi_oracle(what, interp, tag, 0, nrec)
         reg = interp.reg_params[:, 0]
-        o = np.load(ROOT / "tests" / "oracle"
-                    / f"day1000_seed1_highorder_{mode}.npz")
-        nan = np.isnan(chi2)
-        rel = np.abs(chi2 - o["chi2"]) / o["chi2"]
-        wf = wfield(dict(interp=interp, C=C), o["C"], HI_NREC)
-        dla = dlog10(reg, o["reg"][:, 0])
+        if mode == "exact_grid":
+            want = grid_eighs(interp, nrec, device, reg)
+            check(np.nanmax(rel) <= CHI2_MAX_TOL, f"{what}: chi2 vs its "
+                  f"oracle max {np.nanmax(rel):.3e} (bar {CHI2_MAX_TOL})")
+        else:
+            # fast: AtWA's, the whitened pencil's and the final solve's a
+            # record; gcv: AtWA's and the final solve's, R's once
+            want = ({"fast": 3, "gcv": 2}[tag] * fitted(nrec, device)
+                    + (method == "gcv"))
+            if mode == "fast":
+                held_to_bars(f"{what}: chi2 vs its oracle", rel,
+                             CHI2_MEDIAN_TOL, CHI2_MAX_TOL)
+        alphas = ""
+        if method == "gcv":
+            o = np.load(ROOT / "tests" / "oracle"
+                        / f"day1000_seed1_highorder_{tag}.npz")
+            alphas = (f"; log10 alpha {np.round(np.log10(reg), 3).tolist()}"
+                      f", the oracle's "
+                      f"{np.round(np.log10(o['reg'][:nrec, 0]), 3).tolist()}")
         fit_s = interp.timer.report()["fit_records"]
-        print(f"phase 11 highorder (b) fit, {mode}: Interpolate.calc_coeffs "
-              f"of {HI_NREC} records (the oracle's QC'd bytes) {secs:.3f} s, "
-              f"of which fit_records {fit_s:.3f} s = {HI_NREC / fit_s:.3f} "
-              f"records/s; eighs a record: card {card / HI_NREC:.3f}, host "
-              f"{host / HI_NREC:.3f} ({host_s:.3f} s in host_eigh, "
-              f"{host_s / max(host, 1) * 1e3:.1f} ms a matrix); peak device "
-              f"memory {peak:.3f} GiB; {int(nan.sum())} NaN (oracle "
-              f"{int(np.isnan(o['chi2']).sum())}), "
-              f"{int((chi2[~nan] < 0).sum())} negative chi2; vs the oracle: "
-              f"chi2 rel median {np.nanmedian(rel):.4e} max "
-              f"{np.nanmax(rel):.4e}, W-weighted field median "
-              f"{np.nanmedian(wf):.4e} max {np.nanmax(wf):.4e}, |dlog10 "
-              f"alpha| median {np.median(dla):.4e} max {dla.max():.4e} "
-              f"(printed, not held)", flush=True)
-        if device == "cuda":
-            print_pinned(f"after phase 11's {mode} window")
-        check(C.shape == (HI_NREC, 1200), f"{mode}: C {C.shape}")
-        check(np.array_equal(nan, np.isnan(o["chi2"])),
-              f"{mode}: NaN set differs from its oracle")
-        check(np.isfinite(C[~nan]).all() and (chi2[~nan] >= 0).all(),
-              f"{mode}: non-finite coefficients or negative chi2")
-        held_to_bars(f"order {HI_ORDER} {mode}: chi2 vs its oracle", rel,
-                     CHI2_MEDIAN_TOL, CHI2_MAX_TOL)
-        held_to_bars(f"order {HI_ORDER} {mode}: W-weighted field vs its "
-                     "oracle", wf, WFIELD_MEDIAN_TOL, WFIELD_MAX_TOL)
-        check(card == 0 and host == per_rec * HI_NREC + (mode == "exact"),
-              f"{mode}: {card} eighs on the card, {host} on the host")
-    return fits["exact"]
+        print(f"phase 11 highorder (b) fit, {tag} (REGULARIZATION_METHOD = "
+              f"{method}, REGPARAM_MODE = {mode}): calc_coeffs of {nrec} "
+              f"records {secs:.3f} s, of which fit_records {fit_s:.3f} s = "
+              f"{nrec / fit_s:.3f} records/s; eighs a record: card "
+              f"{card / nrec:.3f}, host {host / nrec:.3f} ({host} matrices "
+              f"of 1200 x 1200, the card's padding to "
+              f"{fitted(nrec, device)} records included; {host_s:.3f} s in "
+              f"host_eigh); peak device memory {peak:.3f} GiB [{CARD}]; "
+              f"{line}{alphas}", flush=True)
+        check(card == 0 and host == want, f"{what}: {card} eighs on the "
+              f"card, {host} on the host; 0 and {want} expected")
+        del interp
 
 
 def phase_highorder_lambda(device="cuda"):
-    """Phase 11 (c): tests/test_highorder.py's lambda sweep, monotone to
-    its slack (tests/test_torch_highorder.py holds the CPU's values against
-    the JAX package's)."""
+    """Phase 11 (b), last: tests/test_highorder.py's lambda sweep,
+    monotone to its slack (tests/test_torch_highorder.py holds the CPU's
+    values against the JAX package's)."""
     model = hi_model()
     rng = np.random.default_rng(7)  # test_highorder.py's problem
     npts = 800
@@ -1913,7 +2059,7 @@ def phase_highorder_lambda(device="cuda"):
     card, host, host_s = eighs_since(c0)
     floor = 1e-6 * vals.max()
     steps = vals[1:] - (vals[:-1] - np.abs(vals[:-1]) * HI_SWEEP_SLACK - floor)
-    print(f"phase 11 highorder (c) lambda sweep: cutoff_chi2 at "
+    print(f"phase 11 highorder (b) lambda sweep: cutoff_chi2 at "
           f"{len(HI_SWEEP)} log10 alphas {HI_SWEEP[0]:g}..{HI_SWEEP[-1]:g} "
           f"({npts} points) {sweep_s:.3f} s, eighs card {card} host {host} "
           f"({host_s:.3f} s); chi2 {np.array2string(vals, precision=6)}; "
@@ -1921,6 +2067,83 @@ def phase_highorder_lambda(device="cuda"):
     check(np.isfinite(vals).all() and (steps >= 0).all(),
           "lambda sweep: chi2(alpha) not monotone to the slack")
     check(card == 0 and host == len(HI_SWEEP), "lambda sweep: eighs")
+
+
+def phase_highorder_keogram(interp, device="cuda", axes=HI_KEOGRAM):
+    """Phase 11 (c): the day's product, every fitted record at the
+    meridian keogram's points through Estimate.evaluate_records of a
+    mem_estimate (no file, no copy of the covariance) with the FoV mask:
+    one launch of the tiled kernel (evaluate_records' chunk holds 2^27
+    point-records) and none of grid_eval.cu, against the float64 twin
+    (the Estimate's evaluator and mask, float64 points and records): the
+    same NaN set, each point within GRID_TOL of its record's sup plus
+    GROSS_TOL of its gross sum (phase 5's bar for fitted records; the
+    fraction of the record's sup printed).  Returns the launches it
+    made."""
+    est = mem_estimate(interp, device, "day1.h5")
+    times = [EPOCH + dt.timedelta(seconds=float(t))
+             for t in np.mean(est.time, axis=1)]
+    nrec = len(times)
+    glat, glon, galt = grid(*axes)
+    tiled0, plain0 = grid_eval_cuda.tiled_launches, grid_eval_cuda.launches
+    _reset_peak(device)
+    t0 = time.perf_counter()
+    vol = est.evaluate_records(times, glat, glon, galt, check_hull=True)
+    secs = time.perf_counter() - t0
+    launched = grid_eval_cuda.tiled_launches - tiled0
+    peak = _peak_gib(device)
+    check(vol.shape == (nrec,) + glat.shape and vol.dtype == np.float32,
+          f"keogram shape {vol.shape} {vol.dtype}")
+    want = int(device == "cuda")  # the CPU runs the plain twin
+    check(launched == want and grid_eval_cuda.launches == plain0,
+          f"keogram: {launched} launches of the tiled kernel, "
+          f"{grid_eval_cuda.launches - plain0} of grid_eval.cu; {want} and 0"
+          " expected")
+    g, ev = est._prepared_grid, est._grid_ev
+    Cs = np.stack([np.asarray(est.get_C(t)[0], np.float64) for t in times])
+    pts = [torch.as_tensor(a.ravel(), dtype=torch.float64, device=device)
+           for a in (glat, glon, galt)]
+    ref = grid_eval_cuda.eval_records_plain(
+        *pts, ev.fold_coeffs(Cs, torch.float64), ev, g["inside"])
+    out = torch.as_tensor(vol.reshape(nrec, -1), device=device)
+    nan = torch.isnan(ref)
+    check(torch.equal(torch.isnan(out), nan),
+          "keogram: kernel and twin NaN sets differ")
+    zero = torch.zeros((), dtype=ref.dtype, device=device)
+    diff = torch.where(nan, zero, (out.double() - ref).abs())
+    sup = torch.where(nan, zero, ref.abs()).amax(1)
+    err = diff.amax(1)
+    worst = int(torch.argmax(err / torch.where(sup > 0, sup, 1.0)))
+    # fitted coefficients cancel ~3e3-fold, so float32 holds each point to
+    # phase 5's bar: GRID_TOL of the record's sup plus GROSS_TOL of the
+    # point's gross sum |A||C| (the design path, float64 on the device)
+    gross = (est.model.basis(*pts).abs()
+             @ torch.as_tensor(np.abs(Cs), device=device).T).T
+    over = diff - (GRID_TOL * sup[:, None] + GROSS_TOL * gross)
+    over = torch.where(nan, -1.0, over)
+    r, i = divmod(int(torch.argmax(over)), over.shape[1])
+    check(float(over[r, i]) <= 0.0,
+          f"keogram: record {r} point {i}: kernel error "
+          f"{float(diff[r, i]):.3e} > {GRID_TOL} x the record's sup "
+          f"{float(sup[r]):.3e} + {GROSS_TOL} x the point's gross sum "
+          f"{float(gross[r, i]):.3e}")
+    live = int((~nan).any(1).sum())
+    print(f"phase 11 highorder (c) keogram: evaluate_records({nrec} fitted "
+          f"records x {glat.size} meridian points, FoV mask) {secs:.3f} s "
+          f"({nrec * glat.size / secs:.4e} points/s: "
+          f"{_phases(est.timer.report())}), peak device memory "
+          f"{peak:.3f} GiB [{CARD}]; {launched} launch of grid_eval_tiled.cu "
+          f"for {nrec} records ({len(grid_eval_cuda.record_groups(nrec))} "
+          f"groups of {grid_eval_cuda.GROUP}), none of grid_eval.cu; "
+          f"{int((~nan[0]).sum())} points in the FoV, {live} records with a "
+          f"finite value; max|kernel - f64 twin| "
+          f"{float(err[worst] / sup[worst]):.3e} of the record's sup (record "
+          f"{worst}; records within {KERNEL_TOL} of it: "
+          f"{int((err <= KERNEL_TOL * sup).sum())}), "
+          f"{float((diff / torch.where(nan, 1.0, gross)).max()):.3e} of the "
+          f"point's gross sum, within {GRID_TOL} x sup + {GROSS_TOL} x gross "
+          f"at every point; NaN sets equal", flush=True)
+    return launched
 
 
 def phase_highorder_lobo(device="cuda", day=DAY):
@@ -1963,7 +2186,7 @@ def phase_highorder_lobo(device="cuda", day=DAY):
 
 def phase_highorder_product(interp, device="cuda", shape=(512, 512, 128),
                             nrec=HI_PRODUCT_NREC, finite_frac=FINITE_FRAC):
-    """Phase 11 (e): the exact window's first nrec records on the grid
+    """Phase 11 (e): the day's first nrec records on the grid
     with the FoV mask through Estimate.evaluate_records (the kernel's
     HI_ORDER instantiation), against the float64 design path x C at 10^4
     points.  Returns the tiled kernel's launches it made."""
@@ -2019,11 +2242,13 @@ def phase_highorder_product(interp, device="cuda", shape=(512, 512, 128),
 
 # phase 11 (f): (label, grid axes, records, mask), as KERNEL_SHAPES: the
 # product's shape with 8 records, the first port's timing row, a day's
-# meridian keogram, and Estimate.grid_eval's one record
+# meridian keogram at 512 records and at the 1000 of phase 11 (c)'s
+# launch, and Estimate.grid_eval's one record
 HI_KERNEL_SHAPES = (
     ("config-4 x 8 FoV", (512, 512, 128), 8, "fov"),
     ("8.4M x 8", (512, 512, 32), 8, None),
-    ("keogram 65536 x 512", (256, (262.0,), 256), 512, None),
+    ("keogram 65536 x 512", HI_KEOGRAM, 512, None),
+    ("keogram 65536 x 1000", HI_KEOGRAM, 1000, None),  # phase 11 (c)'s day
     ("config-4 x 1", (512, 512, 128), 1, None),
 )
 
@@ -2066,7 +2291,7 @@ def phase_highorder_kernel(C_fit, device="cuda", shapes=HI_KERNEL_SHAPES,
     set; its time, bound and share, beside a float32 matmul of the
     contraction's shape ([live points, maxl^2] x [maxl^2, records x maxk]:
     a yardstick for the contraction alone, no call of the port); the subset
-    property at the first shape (on the card); then the exact window's
+    property at the first shape (on the card); then the day's
     fitted records at the first shape (unless C_fit is None), printed.
     Returns the kernel's JSON entry (the first shape's numbers, every
     shape's under "shapes")."""
@@ -2146,16 +2371,20 @@ def phase_highorder(device="cuda", shape=(512, 512, 128),
     the HI_ORDER kernel's JSON entry with its launches on this path (all
     of them grid_eval_tiled.cu's: none of grid_eval.cu)."""
     grid_eval_cuda.launches = grid_eval_cuda.tiled_launches = 0
-    interp = phase_highorder_fits(device)
+    phase_highorder_basis()
+    interp = phase_highorder_day(device)
+    phase_highorder_windows(device)
     phase_highorder_lambda(device)
+    keogram = phase_highorder_keogram(interp, device)
     phase_highorder_lobo(device)
     launched = phase_highorder_product(interp, device, shape,
                                        finite_frac=finite_frac)
     launches = grid_eval_cuda.tiled_launches
-    check(launched > 0 and launches == launched
+    check(launched > 0 and launches == keogram + launched
           and grid_eval_cuda.launches == 0,
-          f"phase 11: the product launched the tiled kernel {launched} "
-          f"times, grid_eval.cu {grid_eval_cuda.launches} times")
+          f"phase 11: the keogram and the product launched the tiled kernel "
+          f"{keogram} and {launched} times of {launches}, grid_eval.cu "
+          f"{grid_eval_cuda.launches} times")
     entry = phase_highorder_kernel(interp.Coeffs, device)
     entry["launches"] = launches
     return entry
@@ -2174,6 +2403,7 @@ def print_pinned(when):
     print(f"page-locked host memory {when}: peak held "
           + ("not reported" if held is None else f"{held / 2**30:.3f} GiB"),
           flush=True)
+    return held
 
 
 def main():
@@ -2204,8 +2434,18 @@ def main():
     kernel["launches"] = grid_eval_cuda.launches
     check(kernel["launches"] > 0, "the main path never launched the kernel")
     # BASELINE config 3's path, its launches counted from 0 again
+    before = print_pinned("before phase 11")
     hi_kernel = phase_highorder()
-    print_pinned("over the run")
+    held = print_pinned(f"over the run [{CARD}]")
+    if held is not None:
+        bound = before + PINNED_SLICES * solve.HOST_EIGH_SLICE_BYTES
+        check(held <= bound, f"page-locked memory {held / 2**30:.3f} GiB "
+              f"held, over {bound / 2**30:.3f} GiB: what phases 1-10 held and "
+              f"{PINNED_SLICES} of host_eigh's slices")
+        print(f"page-locked host memory over the run {held / 2**30:.3f} GiB, "
+              f"bound {bound / 2**30:.3f} GiB (phases 1-10 "
+              f"{before / 2**30:.3f} GiB and {PINNED_SLICES} slices of "
+              f"{solve.HOST_EIGH_SLICE_BYTES / 2**30:g} GiB)", flush=True)
     print(json.dumps({"kernels": [kernel, hi_kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 #!/usr/bin/env python
 """Build tests/oracle/day1000_seed1_window64_<tag>.npz, or, for the tags
-timeaxis, radbasfun, lobo and highorder_{exact,fast,lobo},
-tests/oracle/day1000_seed1_<tag>.npz (highorder_sweep: see below).
+timeaxis, radbasfun, lobo and highorder_{exact,fast,exact_tail,gcv,
+exact_grid,lobo}, tests/oracle/day1000_seed1_<tag>.npz (highorder_sweep:
+see below).
 
 The JAX package's CPU float64 fit of the first 64 records of the seed-1
 synthetic day (nrec=1000, nan_frac=0.03, bad_frac=0.01, basis-projected
@@ -55,6 +56,14 @@ feeds the port).  At 580 points against 1200 basis functions every record
 is underdetermined.  Stores C [128, 1200], chi2 [128] and reg [128, 1] in
 tests/oracle/day1000_seed1_highorder_<mode>.npz; no covariance (1.5 GB).
 
+highorder_exact_tail, highorder_gcv, highorder_exact_grid: the same at
+that order on other windows of the same bytes (HI_WINDOWS): records
+896-999 in exact mode (the day's last 128-record chunk, 104 records,
+which the card pads to 128), the first 32 with REGULARIZATION_METHOD =
+gcv (exact mode), the first 8 in exact_grid (2 records a call: a call
+decomposes 101 matrices a record at once).  Each also stores ``start``,
+its first record's index in the day.
+
 highorder_lobo: the leave-one-beam-out sweep at that order on the first
 HI_LOBO_NREC records (the same bytes), over all 20 beams and
 HI_LOBO_ALPHAS, which bracket the highorder_exact oracle's alphas (log10
@@ -74,7 +83,10 @@ compile included): exact_grid not recorded; exact 65 s; fast 21 s; gcv
 and lobo as printed by the run (CHANGES.md); highorder_exact 1,477 s,
 highorder_fast 712 s, highorder_lobo 1,695 s and highorder_sweep 248 s,
 each beside other work on the same 8 cores (the JAX package's float64
-eigendecompositions at n = 1200 run its deflation ladder).
+eigendecompositions at n = 1200 run its deflation ladder);
+highorder_exact_tail 301.6 s on 4 of the 8 cores and highorder_exact_grid
+335.9 s on 3 of them, side by side, then highorder_gcv 1,277.7 s on the
+same 3.
 
 Usage:  JAX_PLATFORMS=cpu python scripts/window_oracle.py [tag]
         (default tag: exact_grid)
@@ -118,6 +130,12 @@ LOBO_ORDERS = [(2, 3), (3, 5), (4, 6)]
 HI_CFG = CFG.replace("MAXK = 4", "MAXK = 12").replace("MAXL = 6", "MAXL = 10")
 HI_NREC, HI_CHUNK = 128, 16
 HI_LOBO_NREC = 4
+# tag: (first record, records, REGULARIZATION_METHOD, REGPARAM_MODE,
+# records a fit_records call); highorder_exact and highorder_fast are
+# (0, HI_NREC, "chi2", mode, HI_CHUNK)
+HI_WINDOWS = {"exact_tail": (896, 104, "chi2", "exact", HI_CHUNK),
+              "gcv": (0, 32, "gcv", "exact", HI_CHUNK),
+              "exact_grid": (0, 8, "chi2", "exact_grid", 2)}
 HI_LOBO_ALPHAS = [float(a) for a in range(-29, -20)]
 PROFILE = "chapman,1e11,300,50"
 TIME_COUPLING = 1e-4
@@ -288,17 +306,20 @@ def highorder(mode):
         np.savez(out, per=per, scores=scores, alphas=HI_LOBO_ALPHAS,
                  best_log10_alpha=HI_LOBO_ALPHAS[int(np.argmin(scores))])
     else:
-        v, e = o["value"][:HI_NREC], o["error"][:HI_NREC]
+        start, nrec, method, fmode, chunk = HI_WINDOWS.get(
+            mode, (0, HI_NREC, "chi2", mode, HI_CHUNK))
+        v = o["value"][start:start + nrec]
+        e = o["error"][start:start + nrec]
         C, chi2, reg = [], [], []
-        for s in range(0, HI_NREC, HI_CHUNK):
-            c, _, x2, rp = fit_records(v[s:s + HI_CHUNK], e[s:s + HI_CHUNK],
-                                       A, R[None], method="chi2",
-                                       regparam_mode=mode)
+        for s in range(0, nrec, chunk):
+            c, _, x2, rp = fit_records(v[s:s + chunk], e[s:s + chunk],
+                                       A, R[None], method=method,
+                                       regparam_mode=fmode)
             C.append(np.asarray(c))
             chi2.append(np.asarray(x2))
             reg.append(np.asarray(rp))
         np.savez(out, C=np.concatenate(C), chi2=np.concatenate(chi2),
-                 reg=np.concatenate(reg))
+                 reg=np.concatenate(reg), start=start)
     print(f"{out}: {time.perf_counter() - t0:.1f} s")
 
 

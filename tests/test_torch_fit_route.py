@@ -61,7 +61,8 @@ ROUTES = {
     ("chi2", "exact", 1): lambda rp: 4 * NREC + 1,
     # AtWA's, per matrix the pencil's and two anchors', the final solve's
     ("chi2", "exact", 2): lambda rp: (1 + 3 * 2 + 1) * NREC + 2,
-    # 101 grid points, 40 bisection rounds a root, the final solve's
+    # 101 grid points (make_records' records all have points), 40
+    # bisection rounds a root, the final solve's
     ("chi2", "exact_grid", 1): lambda rp: 102 * NREC + 40 * _roots(rp[:, 0]),
     # AtWA's, the pencil's, the final solve's
     ("chi2", "fast", 1): lambda rp: 3 * NREC,
@@ -249,6 +250,45 @@ def test_card_padding_is_dropped(route, monkeypatch):
         np.testing.assert_allclose(chi2, plain[2], rtol=1e-9)
         np.testing.assert_allclose(C, plain[0], rtol=1e-9,
                                    atol=1e-9 * np.nanmax(np.abs(plain[0])))
+
+
+def test_exact_grid_decomposes_no_empty_grid(monkeypatch):
+    """exact_grid with an empty record (every value NaN) and the card's
+    padding forced (12 records to 16): the empty and the padded records,
+    whose chi^2 is 0 at every alpha, take no grid and fail as in the
+    plain fit; every record with points keeps the plain fit's alpha and
+    chi^2 bits (the same grid batches); host eighs 101 a record with
+    points, 40 a root, one final solve a record, the padding's too."""
+    values, errors, A, R = make_records(2)
+    values[4] = np.nan
+    kw = dict(regparam_mode="exact_grid", device="cpu")
+    plain = [x.numpy() for x in fit_records(values, errors, A, R, **kw)]
+    monkeypatch.setattr(ops_fit, "_padding", lambda v: -v.shape[0] % 8)
+    with Counted() as n:
+        padded = [x.numpy() for x in fit_records(values, errors, A, R, **kw)]
+    rp = padded[3][:, 0]
+    assert np.isnan(rp[4]) and np.isnan(plain[3][4, 0])
+    np.testing.assert_array_equal(rp, plain[3][:, 0])
+    np.testing.assert_array_equal(padded[2], plain[2])
+    assert (n.card, n.host) == (0, 101 * (NREC - 1) + 16 + 40 * _roots(rp))
+
+
+def test_host_eigh_slices_keep_the_bits(monkeypatch):
+    """solve.host_eigh under a bound lowered to three matrices a slice
+    (HOST_EIGH_SLICE_BYTES): ten matrices in slices of 3, 3, 3 and 1, and
+    the bits of the unsplit call, each matrix counted once."""
+    rng = np.random.default_rng(4)
+    X = rng.normal(size=(2, 5, 40, 40))
+    X = torch.as_tensor(X + X.swapaxes(-1, -2))
+    w0, V0 = solve.host_eigh(X)
+    monkeypatch.setattr(solve, "HOST_EIGH_SLICE_BYTES", 3 * 40 * 40 * 8 + 8)
+    assert solve.eigh_slices(X.reshape(10, 40, 40)) == [
+        slice(0, 3), slice(3, 6), slice(6, 9), slice(9, 12)]
+    with Counted() as n:
+        w, V = solve.host_eigh(X)
+    assert (n.card, n.host) == (0, 10)
+    assert w.shape == (2, 5, 40) and V.shape == X.shape
+    assert torch.equal(w, w0) and torch.equal(V, V0)
 
 
 FIT_TWICE = """

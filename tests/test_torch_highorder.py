@@ -7,9 +7,11 @@ this order the JAX package's float64 fits, lambda sweep and sweep take
 minutes a call on a CPU (its eigendecompositions run the deflation ladder
 at n = 1200), so those tests hold the port against the JAX package's CPU
 float64 outputs for the same inputs, made by scripts/window_oracle.py
-(tags highorder_exact, highorder_fast, highorder_lobo, highorder_sweep)
-and stored under tests/oracle: the fits and the sweep on the first records
-of the seed-1 day (scripts/day_check.py's: 580 points, 20 beams, 3% NaN),
+(tags highorder_exact, highorder_exact_tail, highorder_fast,
+highorder_gcv, highorder_exact_grid, highorder_lobo, highorder_sweep) and
+stored under tests/oracle: the fits and the sweep on the first records of
+the seed-1 day (scripts/day_check.py's: 580 points, 20 beams, 3% NaN) and
+on the first records of its last 128-record chunk,
 fed the oracles' own QC'd bytes (tests/oracle/day1000_seed1_timeaxis.npz).
 At 580 points against 1200 basis functions every record is
 underdetermined, and the exact search's roots sit on a cutoff staircase:
@@ -45,6 +47,7 @@ from tests.test_highorder import HI_CFG
 
 ORACLE = Path(__file__).resolve().parent / "oracle"
 NREC = 4  # the oracles' first records
+TAIL = 896  # the first record of the day's last chunk (highorder_exact_tail)
 PROD_CFG = HI_CFG.replace("MAXK = 12", "MAXK = 4").replace("MAXL = 10",
                                                            "MAXL = 6")
 
@@ -68,7 +71,9 @@ def day():
                                          [0.1, 10.0], [1, 2, 3, 4])
     o = np.load(ORACLE / "day1000_seed1_timeaxis.npz")
     return dict(lat=lat, lon=lon, alt=alt, bidx=beam_indices(data),
-                values=o["value"][:NREC], errors=o["error"][:NREC])
+                values=o["value"][:NREC], errors=o["error"][:NREC],
+                tail_values=o["value"][TAIL:TAIL + NREC],
+                tail_errors=o["error"][TAIL:TAIL + NREC])
 
 
 def _wfield(A, C, C_ref, values, errors):
@@ -89,19 +94,24 @@ def _env():
     return env
 
 
-def _held(C, chi2, rp, mode, A, day, chi2_tol, wf_tol):
-    """A fit of the NREC records against its oracle's first NREC: the NaN
-    set, no negative chi2, chi2 and the W-weighted field within their
-    bars; returns |dlog10 alpha|."""
+def _held(C, chi2, rp, mode, A, day, chi2_tol, wf_tol, tail=False):
+    """A fit of n records (NREC, or fewer) against its oracle's first n:
+    the NaN set, no negative chi2, chi2 and the W-weighted field within
+    their bars; returns |dlog10 alpha|.  ``tail``: the records are the
+    day's from TAIL (the oracle's rows begin there)."""
     o = np.load(ORACLE / f"day1000_seed1_highorder_{mode}.npz")
-    np.testing.assert_array_equal(np.isnan(chi2), np.isnan(o["chi2"][:NREC]))
+    n = len(chi2)
+    assert int(o["start"] if "start" in o else 0) == (TAIL if tail else 0)
+    values, errors = ((day["tail_values"], day["tail_errors"]) if tail
+                      else (day["values"], day["errors"]))
+    np.testing.assert_array_equal(np.isnan(chi2), np.isnan(o["chi2"][:n]))
     ok = ~np.isnan(chi2)
     assert (chi2[ok] >= 0).all()
-    rel = np.abs(chi2 - o["chi2"][:NREC]) / o["chi2"][:NREC]
-    wf = _wfield(A, C, o["C"][:NREC], day["values"], day["errors"])
+    rel = np.abs(chi2 - o["chi2"][:n]) / o["chi2"][:n]
+    wf = _wfield(A, C, o["C"][:n], values[:n], errors[:n])
     assert np.nanmax(rel) <= chi2_tol, rel
     assert np.nanmax(wf) <= wf_tol, wf
-    return np.abs(np.log10(rp[ok, 0]) - np.log10(o["reg"][:NREC][ok, 0]))
+    return np.abs(np.log10(rp[ok, 0]) - np.log10(o["reg"][:n][ok, 0]))
 
 
 def test_basis_and_psi_match_jax_and_oracle(day):
@@ -183,6 +193,54 @@ def test_exact_fit_finishes_at_default_threads(day, tmp_path):
     got = np.load(out)
     assert int(got["nthreads"]) == 8
     _held(got["C"], got["chi2"], got["rp"], "exact", A, day, 0.1, 5e-2)
+
+
+def test_tail_exact_fit_matches_jax(day):
+    """'exact' on the first NREC records of the day's last chunk (records
+    896-899; on the card that chunk holds 104 records padded to 128)
+    against the JAX package's exact fit of records 896-999
+    (highorder_exact_tail): chi2 within 0.1 relative and the W-weighted
+    field within 5e-2, the exact fit's bars above (measured 1.6e-2 and
+    6.3e-3 at most; record 897's root 0.24 decades off on the cutoff
+    staircase)."""
+    _, tm = _pair()
+    A = tm.basis(day["lat"], day["lon"], day["alt"])
+    C, _, chi2, rp = (x.numpy() for x in fit_records(
+        day["tail_values"], day["tail_errors"], A, tm.eval_psi()[None],
+        regparam_mode="exact", device="cpu"))
+    _held(C, chi2, rp, "exact_tail", A, day, 0.1, 5e-2, tail=True)
+
+
+def test_gcv_fit_matches_jax(day):
+    """REGULARIZATION_METHOD = gcv in its exact mode on the first two
+    records against the JAX package's GCV fit of the day's first 32
+    (highorder_gcv): the NaN set, no negative chi2, chi2 within 2e-2
+    relative and the W-weighted field within 1e-2, the fast fit's bars
+    (measured on the first four: 4.4e-3 and 1.6e-3, the Nelder-Mead
+    minima 0.024-0.071 decades apart).  Two records, not four: each
+    Nelder-Mead evaluation inverts ten kept blocks of 1200 x 1200 a
+    record, ~45 s for two on 8 idle cores."""
+    _, tm = _pair()
+    A = tm.basis(day["lat"], day["lon"], day["alt"])
+    C, _, chi2, rp = (x.numpy() for x in fit_records(
+        day["values"][:2], day["errors"][:2], A, tm.eval_psi()[None],
+        method="gcv", regparam_mode="exact", device="cpu"))
+    _held(C, chi2, rp, "gcv", A, day, 2e-2, 1e-2)
+
+
+def test_exact_grid_fit_matches_jax(day):
+    """'exact_grid' (the 101-point grid and 40 bisection rounds, 142 host
+    eighs of 1200 x 1200 a record) on the first two records against the
+    JAX package's exact_grid fit of the day's first 8 (highorder_exact_grid):
+    chi2 within 2e-2 relative and the W-weighted field within 1e-2, the
+    fast fit's bars (measured 7.2e-4 and 5.7e-4; the roots 1.6e-2 decades
+    apart at most)."""
+    _, tm = _pair()
+    A = tm.basis(day["lat"], day["lon"], day["alt"])
+    C, _, chi2, rp = (x.numpy() for x in fit_records(
+        day["values"][:2], day["errors"][:2], A, tm.eval_psi()[None],
+        regparam_mode="exact_grid", device="cpu"))
+    _held(C, chi2, rp, "exact_grid", A, day, 2e-2, 1e-2)
 
 
 BATCHED_CHILD = r"""

@@ -429,8 +429,11 @@ class Interpolate:
         mesh = self._mesh()
 
         def finish(s, e, res):
-            C_all[s:e], dC_all[s:e], c2_all[s:e], rp_all[s:e] = (
-                t.cpu().numpy() for t in res)
+            if res[1].is_cuda:  # the chunk's device work, apart from its copy
+                torch.cuda.current_stream(res[1].device).synchronize()
+            with self.timer.phase("copy_to_host"):
+                C_all[s:e], dC_all[s:e], c2_all[s:e], rp_all[s:e] = (
+                    t.cpu().numpy() for t in res)
             if writer is not None:
                 writer.write_chunk(s, utime[s:e], C_all[s:e], dC_all[s:e],
                                    c2_all[s:e], rp_all[s:e])

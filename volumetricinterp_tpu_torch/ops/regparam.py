@@ -37,11 +37,11 @@ from __future__ import annotations
 
 import torch
 
-from .solve import (EPS64, TINY64, _keep_mask, _mv, alpha_of_log,
-                    anchor_chi2, batched_inv, chi2_from_eig_x, cutoff_chi2_x,
-                    deflated_diag, make_anchor, norm_scale, normalized_eigh,
-                    project, select_anchor, sym_pinv_apply, whiten_pencil,
-                    whitened_chi2)
+from .solve import (EPS64, HOST_EIGH_SLICE_BYTES, TINY64, _keep_mask, _mv,
+                    alpha_of_log, anchor_chi2, batched_inv, chi2_from_eig_x,
+                    cutoff_chi2_x, deflated_diag, make_anchor, norm_scale,
+                    normalized_eigh, project, select_anchor, sym_pinv_apply,
+                    whiten_pencil, whitened_chi2)
 
 # reference constants (interpolate.py:173, 199-202)
 SCALE_FACTORS = (0.6, 0.7, 0.8, 0.9, 1.0)
@@ -49,7 +49,9 @@ ALPHA_MIN = -100.0
 N_GRID = int(-ALPHA_MIN) + 1  # 101
 N_BISECT = 40
 # matrices per batched eigendecomposition: bounds the [batch, nb, nb]
-# working set (~0.4 GB of X, V and temporaries at nb = 144)
+# working set (~0.4 GB of X, V and temporaries at nb = 144); at large nb a
+# batch is at most one of host_eigh's slices (186 matrices at nb = 1200,
+# where 1024 would hold ~12 GB a tensor of the working set)
 EIGH_BATCH = 1024
 
 # 'exact' mode (regparam.py:76-126, at the JAX package's shipped values)
@@ -88,10 +90,14 @@ def _full(like, value):
 
 def _chi2_at(log_alpha, AtWA, AtWb, btWb, R, rec, tau=None):
     """chi^2(10**log_alpha[i]) of record rec[i] with X = AtWA + alpha R
-    (and the rhs AtWb + alpha tau), in batches of EIGH_BATCH matrices."""
+    (and the rhs AtWb + alpha tau), in batches of EIGH_BATCH matrices (of
+    HOST_EIGH_SLICE_BYTES at most)."""
     out = torch.empty_like(log_alpha)
-    for s in range(0, log_alpha.shape[0], EIGH_BATCH):
-        sl = slice(s, s + EIGH_BATCH)
+    nb = AtWA.shape[-1]
+    batch = min(EIGH_BATCH, max(1, HOST_EIGH_SLICE_BYTES
+                                // (nb * nb * AtWA.element_size())))
+    for s in range(0, log_alpha.shape[0], batch):
+        sl = slice(s, s + batch)
         r = rec[sl]
         a = alpha_of_log(log_alpha[sl])
         atau = None if tau is None else a[:, None] * tau
@@ -133,15 +139,19 @@ def chi2_reg_param_grid(AtWA, AtWb, btWb, N, R, tau=None):
     AtWA [nrec, nb, nb], AtWb [nrec, nb], btWb [nrec], N [nrec]; R [nb, nb];
     tau [nb] or None.
     Returns log10(alpha) [nrec]: -inf for too-smooth, NaN for no bracket.
-    Bisection runs only on the records that return a root (one host read
-    of that set)."""
+    A record with no points (N = 0: an empty record, or the card's padding,
+    ops/fit.prepare_stats) has chi^2 = 0 at every alpha (AtWb and btWb are
+    0), so no bracket and a NaN outcome: its grid is not decomposed (one
+    host read of the records with points).  Bisection runs only on the
+    records that return a root (one host read of that set)."""
     nrec = AtWA.shape[0]
     dev, dt = AtWA.device, AtWA.dtype
     alphas = -torch.arange(N_GRID, dtype=dt, device=dev)
-    rec = torch.arange(nrec, device=dev)
-    chi2_grid = _chi2_at(alphas.repeat(nrec), AtWA, AtWb, btWb, R,
-                         rec.repeat_interleave(N_GRID),
-                         tau).reshape(nrec, N_GRID)
+    live = torch.nonzero(N > 0).flatten()
+    chi2_grid = torch.zeros((nrec, N_GRID), dtype=dt, device=dev)
+    chi2_grid[live] = _chi2_at(alphas.repeat(live.shape[0]), AtWA, AtWb,
+                               btWb, R, live.repeat_interleave(N_GRID),
+                               tau).reshape(-1, N_GRID)
     nu, is_smooth, any_event, lo, hi = _grid_bracket(chi2_grid, N)
 
     # bisection only where a root is returned

@@ -64,6 +64,9 @@ host_eigh_matrices = 0
 host_eigh_seconds = 0.0
 # host threads of ``host_eigh``: each decomposes a slice of the batch
 HOST_EIGH_THREADS = min(8, os.cpu_count() or 1)
+# the most bytes of matrices ``host_eigh`` copies to the host at once (a
+# power of two, the caching host allocator's block sizes)
+HOST_EIGH_SLICE_BYTES = 2 << 30
 _pools = threading.local()
 _count_lock = threading.Lock()
 
@@ -128,30 +131,57 @@ def host_eigh(X):
     otherwise, NaN-failed records, put the card's fits twice as far from
     the reference as a CPU's and made them follow the record batch's layout
     (PERF.md).  Each pool thread runs its slice with one intra-op thread:
-    LAPACK's own threads on a 144x144 matrix only contend."""
+    LAPACK's own threads on a 144x144 matrix only contend.
+
+    The batch goes through in slices of at most HOST_EIGH_SLICE_BYTES of
+    matrices (``eigh_slices``): PyTorch's caching host allocator keeps every
+    page-locked buffer for the life of the process, and a whole batch's
+    (720 matrices of 1200 x 1200 in the sweep at BASELINE config 3) held
+    21 GiB.  LAPACK decomposes each matrix on its own, so the slicing moves
+    no bit."""
     global eigh_matrices, host_eigh_matrices, host_eigh_seconds
     t0 = time.perf_counter()
     n = X[..., 0, 0].numel()
-    Xh = X.detach().reshape((-1,) + X.shape[-2:])
+    Xf = X.detach().reshape((-1,) + X.shape[-2:])
     # to and from the card through page-locked buffers (PyTorch's caching
     # host allocator reuses them): pageable copies ran at ~3.5 GB/s, 0.54 s
     # of a 1.83 s sweep call (PERF.md); the results go back without a wait
     card = X.device.type == "cuda"
-    if card:
-        Xh = torch.empty(Xh.shape, dtype=X.dtype, pin_memory=True).copy_(Xh)
-    parts = [p for p in torch.tensor_split(Xh, HOST_EIGH_THREADS) if len(p)]
-    res = list(_host_pool().map(torch.linalg.eigh, parts))
-    w = torch.empty(Xh.shape[:-1], dtype=X.dtype, pin_memory=card)
-    V = torch.empty(Xh.shape, dtype=X.dtype, pin_memory=card)
-    torch.cat([r[0] for r in res], out=w)
-    torch.cat([r[1] for r in res], out=V)
-    w = w.reshape(X.shape[:-1]).to(X.device, non_blocking=True)
-    V = V.reshape(X.shape).to(X.device, non_blocking=True)
+    w = torch.empty(Xf.shape[:-1], dtype=X.dtype, device=X.device)
+    V = torch.empty(Xf.shape, dtype=X.dtype, device=X.device)
+    for sl in eigh_slices(Xf):
+        Xh = Xf[sl]
+        if card:
+            Xh = torch.empty(Xh.shape, dtype=X.dtype,
+                             pin_memory=True).copy_(Xh)
+        parts = [p for p in torch.tensor_split(Xh, HOST_EIGH_THREADS)
+                 if len(p)]
+        res = list(_host_pool().map(torch.linalg.eigh, parts))
+        wh, Vh = w[sl], V[sl]
+        if card:
+            wh = torch.empty(wh.shape, dtype=X.dtype, pin_memory=True)
+            Vh = torch.empty(Vh.shape, dtype=X.dtype, pin_memory=True)
+        torch.cat([r[0] for r in res], out=wh)
+        torch.cat([r[1] for r in res], out=Vh)
+        if card:
+            w[sl].copy_(wh, non_blocking=True)
+            V[sl].copy_(Vh, non_blocking=True)
+    w, V = w.reshape(X.shape[:-1]), V.reshape(X.shape)
     with _count_lock:
         eigh_matrices += n
         host_eigh_matrices += n
         host_eigh_seconds += time.perf_counter() - t0
     return w, V
+
+
+def eigh_slices(X):
+    """The slices host_eigh takes a batch X [B, n, n] in: as few as keep
+    each at most HOST_EIGH_SLICE_BYTES (one matrix at least), of equal
+    size but the last."""
+    most = max(1, HOST_EIGH_SLICE_BYTES
+               // (X.shape[-1] * X.shape[-2] * X.element_size()))
+    per = -(-X.shape[0] // -(-X.shape[0] // most))  # <= most
+    return [slice(s, s + per) for s in range(0, X.shape[0], per)]
 
 
 def _split_over_pool(fn, X, *rest):
