@@ -110,20 +110,21 @@ non-zero:
               exact_tail}.npz: NaN set, chi2 and W-weighted field bars);
               seconds, records/s, host_eigh seconds, peak device,
               page-locked and host memory, each line with the card's name
-              and power limit; (b) through calc_coeffs, fast mode on the
-              first 128 records, GCV (REGULARIZATION_METHOD = gcv) on 32
-              and exact_grid on 8, each against its JAX oracle (...
-              _highorder_{fast,gcv,exact_grid}.npz: NaN set, no negative
-              chi2, W-weighted field bars; chi2 to the fit bars in fast and
-              to its max in exact_grid), then tests/test_highorder.py's
-              lambda sweep, monotone; (c) the day's keogram: all 1000 fitted
+              and power limit; (b) through calc_coeffs, fast mode and
+              REGULARIZATION_METHOD = manual (alpha 1e-23) on the first
+              128 records and exact_grid on 4, each against its JAX oracle
+              (..._highorder_{fast,manual,exact_grid}.npz: NaN set, no
+              negative chi2, W-weighted field bars; chi2 to the fit bars in
+              fast and manual and to its max in exact_grid; manual's alpha
+              the config's), then tests/test_highorder.py's lambda sweep,
+              monotone; (c) the day's keogram: all 1000 fitted
               records at the 65,536 meridian points through
               Estimate.evaluate_records, one launch of the tiled kernel,
               against the float64 twin: the same NaN set, each point within
               5e-5 of its record's sup plus 1e-6 of its gross sum (phase
-              5's bar for fitted records); (d) lobo_cv on 4 records x 20
-              beams x 9 alphas against ..._highorder_lobo.npz (argmin,
-              per-entry median);
+              5's bar for fitted records); (d) lobo_cv on 2 records x 20
+              beams x 9 alphas against ..._highorder_lobo.npz's rows for
+              them (argmin, per-entry median);
               (e) 8 of the day's records on the config-4 grid with the FoV
               mask through evaluate_records (the tiled kernel's HI_ORDER
               instantiation) against the float64 design path x C; (f) that
@@ -133,11 +134,21 @@ non-zero:
               float32 matmul of the contraction's shape as a yardstick), the
               fitted records printed, and the subset property: half the
               grid, the grid under a cut-down mask and one record give the
-              bits of the whole launch.  Last the page-locked memory held,
-              against solve.host_eigh's slice bound.
-Then a JSON line with the kernels (the production instantiation of
+              bits of the whole launch; (g) the exact day dropped, the
+              whole day again with REGULARIZATION_METHOD = gcv (exact
+              mode; regparam.GCV_SLICE_BYTES bounds the search's device
+              memory): no NaN beyond the QC'd empty records, no negative
+              chi2, 0 card and 2,049 host eighs, records 0-31 and
+              968-999 against ..._highorder_{gcv,gcv_tail}.npz (NaN set,
+              W-weighted field bars; chi2 and alpha printed), peak device
+              memory under the unsliced 32-record window's 56.6 GiB, the
+              other numbers of (a), and its keogram as (c).  Last the
+              page-locked memory held, against solve.host_eigh's slice
+              bound.
+The depth cuts that keep the run inside its time limit (TIME_CUTS) print
+first.  Then a JSON line with the kernels (the production instantiation of
 grid_eval.cu with its launches on phases 4-10, grid_eval_tiled.cu's
-HI_ORDER one with phase 11's), and last
+HI_ORDER one with phase 11's but (f)'s), and last
 {"ok": true, "device": ...}.
 The coefficient file goes through h5py when it is installed; otherwise
 the same classes run on in-memory data (h5py: absent), as on the card,
@@ -147,6 +158,7 @@ and Validate's PNG is held on the CPU only (tests/test_torch_grad_validate.py).
 
 import contextlib
 import datetime as dt
+import gc
 import hashlib
 import importlib.util
 import io
@@ -264,22 +276,41 @@ ORDER_AXES, ORDER_NREC = (13, 17, 19), 5
 # phase 11: BASELINE config 3, the lmax=10 x 12 radial basis (nbasis 1200,
 # tests/test_highorder.py's HI_CFG) on the seed-1 day, against the JAX CPU
 # float64 oracles of scripts/window_oracle.py highorder_*: the whole day in
-# exact mode, its first HI_NREC records (one solve.CARD_BATCH) and its last
-# chunk's from HI_TAIL held to highorder_exact and highorder_exact_tail;
-# the windows of HI_WINDOWS.  At 580 points every record is
+# exact mode and in GCV, each held on its first and last chunk
+# (HI_DAY_WINDOWS); the windows of HI_WINDOWS.  At 580 points every record is
 # underdetermined; the fits are held to the fit bars above, lobo_cv's
 # argmin to the oracle's and its per-entry median to about three times the
 # CPU port's distance (phase_highorder_lobo("cpu") on an 8-core CPU:
-# 3.4120e-3; the columns at log10 alpha -29..-26, where the leave-one-out
-# systems keep modes at the gelsd cutoff, 0.026-0.083)
+# 3.4120e-3 on 4 records, 3.0930e-3 on the 2 of TIME_CUTS; the columns at
+# log10 alpha -29..-26, where the leave-one-out systems keep modes at the
+# gelsd cutoff, 0.026-0.083)
 HI_ORDER = (10, 12)  # (maxl, maxk)
-HI_NREC, HI_LOBO_NREC, HI_PRODUCT_NREC = 128, 4, 8
+HI_NREC, HI_LOBO_NREC, HI_PRODUCT_NREC = 128, 2, 8
 HI_TAIL = 896
 # phase 11 (b): (oracle tag, REGULARIZATION_METHOD, REGPARAM_MODE, records)
-HI_WINDOWS = (("fast", "chi2", "fast", 128), ("gcv", "gcv", "exact", 32),
-              ("exact_grid", "chi2", "exact_grid", 8))
+HI_EXACT_GRID_NREC = 4
+HI_WINDOWS = (("fast", "chi2", "fast", 128),
+              ("manual", "manual", "exact", 128),
+              ("exact_grid", "chi2", "exact_grid", HI_EXACT_GRID_NREC))
+# phase 11 (a) and (g): the day's oracle windows by REGULARIZATION_METHOD,
+# (oracle tag, first record, records or None for the oracle's): the first
+# chunk and the last (104 records, padded to 128 on the card); GCV's
+# oracles are a JAX CPU search of 32 records each (~21 min on 3 cores)
+HI_DAY_WINDOWS = {"chi2": (("exact", 0, None), ("exact_tail", HI_TAIL, None)),
+                  "gcv": (("gcv", 0, None), ("gcv_tail", 968, None))}
+# phase 11 (g): the peak device memory of GCV on the day's first 32
+# records (one card batch of 128) before the objective took its records in
+# regparam.GCV_SLICE_BYTES slices (five candidates x 128 records of 1200 x
+# 1200 a tensor; PERF.md §2), which the day stays under
+GCV_WINDOW_PEAK_GIB = 56.6
 # phase 11 (c): the day's meridian keogram, HI_KERNEL_SHAPES' axes
 HI_KEOGRAM = (256, (262.0,), 256)
+# depth cuts so that the whole run keeps inside its 1200 s limit beside
+# phase 11 (g)'s GCV day, printed at the start: (what, records, records
+# before the cut).  The fast window keeps its 128 records: the card pads a
+# shorter window to 128 and decomposes as many
+TIME_CUTS = (("phase 11 (b): exact_grid", HI_EXACT_GRID_NREC, 8),
+             ("phase 11 (d): lobo_cv", HI_LOBO_NREC, 4))
 # page-locked buffers solve.host_eigh may hold at once: a slice's matrices
 # and its results, and the results of the slice before on their way to the
 # card, in each of calc_coeffs' two calling threads (the search's and the
@@ -326,6 +357,10 @@ SHARD_TOL = 1e-3
 # host eighs a record of the exact search (AtWA's, the whitened pencil's,
 # the seed and endgame anchors'); R's once a run
 EXACT_EIGHS = 4
+# host eighs a record of a whole-day fit in exact mode by
+# REGULARIZATION_METHOD, R's once a run beside them: the chi2 search's
+# EXACT_EIGHS; GCV's AtWA and final solve
+DAY_EIGHS = {"chi2": EXACT_EIGHS, "gcv": 2}
 SITE = (74.72955, 265.09424)  # the synthetic day's radar (io/synth.py)
 # phase 10: (a) the design path's points and bar; (b) the band around the
 # hull threshold where the host and the card may disagree; (c) the
@@ -335,6 +370,7 @@ SITE = (74.72955, 265.09424)  # the synthetic day's radar (io/synth.py)
 # minimum two decades from the search's start (log10 alpha -17.85) and the
 # chi2 = nu root inside the bracket (-16.42)
 API_POINTS = 10**6
+HOST_ROUTE_CHUNK = 5000  # points, a chunk of the host route (_host_route)
 DESIGN_TOL = 1e-11  # of each column's sup
 HULL_BAND = 1e-12  # of the hull's scale, max |facet offset|
 API_CFG = "[DEFAULT]\nREGULARIZATION_LIST = 0thorder\n" + MODEL_CFG
@@ -1667,11 +1703,15 @@ def _col_err(dev, host):
 
 
 def _host_route(fn, pts, threads=8):
-    """fn (a model's host float64 route) over ``threads`` point chunks at
-    once, concatenated: numpy's elementwise loops release the GIL."""
+    """fn (a model's host float64 route) over chunks of at most
+    HOST_ROUTE_CHUNK points on ``threads`` threads, concatenated: numpy's
+    elementwise loops release the GIL.  Each point's row is the same in
+    any chunk, and small chunks keep numpy's temporaries small: one chunk
+    a thread took several times longer a point (PERF.md §6)."""
+    nchunk = -(-pts[0].size // HOST_ROUTE_CHUNK)
     with ThreadPoolExecutor(threads) as pool:
         return np.concatenate(list(pool.map(
-            fn, *(np.array_split(a, threads) for a in pts))))
+            fn, *(np.array_split(a, nchunk) for a in pts))))
 
 
 def phase_api_design(inside, device="cuda", npts=API_POINTS,
@@ -1710,8 +1750,8 @@ def phase_api_design(inside, device="cuda", npts=API_POINTS,
         print(f"phase 10 api (a) {what} on {npts} FoV points of the config-4 "
               f"grid, shape {tuple(dev.shape)}: device route ({device} "
               f"float64) cold {secs[0]:.3f} s warm {secs[1]:.3f} s, host "
-              f"float64 route {host_s:.3f} s on 8 threads; max |device - "
-              f"host| "
+              f"float64 route {host_s:.3f} s on 8 threads in chunks of "
+              f"{HOST_ROUTE_CHUNK} points; max |device - host| "
               f"{err:.3e} of the column's sup (bar {DESIGN_TOL})", flush=True)
         del host, dev
 
@@ -1927,43 +1967,63 @@ def phase_highorder_basis():
           f"{HI_ORACLE_TOL})", flush=True)
 
 
-def phase_highorder_day(device="cuda", day=DAY,
-                        windows=(("exact", 0, None),
-                                 ("exact_tail", HI_TAIL, None))):
-    """Phase 11 (a): the day's nrec records in exact mode through
+def rss_gib():
+    """(peak, current) resident host memory of this process, GiB: the peak
+    from getrusage, the current from /proc/self/status (VmRSS)."""
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    for line in Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return peak, int(line.split()[1]) / 2**20
+    raise RuntimeError("chip_smoke: /proc/self/status has no VmRSS")
+
+
+def phase_highorder_day(device="cuda", day=DAY, method="chi2", windows=None,
+                        label="(a)"):
+    """Phase 11 (a) (chi2) and (g) (gcv): the day's nrec records in exact
+    mode with REGULARIZATION_METHOD = ``method`` through
     Interpolate.calc_coeffs: no NaN beyond the QC'd empty records, no
-    negative chi2, 0 card and 4 host eighs a record (each chunk padded to
-    128 on the card) and R's once; ``windows`` (oracle tag, first record,
-    records or None for the oracle's) held to their JAX oracles.  Returns
-    the fit's Interpolate."""
+    negative chi2, 0 card and DAY_EIGHS[method] host eighs a record (each
+    chunk padded to 128 on the card) and R's once; ``windows`` (oracle
+    tag, first record, records or None for the oracle's; HI_DAY_WINDOWS'
+    by default) held to their JAX oracles: the NaN set and the W-weighted
+    field bars, chi2 to the fit bars in chi2 and printed in gcv (phase
+    4c's), with GCV's alphas against the oracle's.  Returns the fit's
+    Interpolate."""
     nrec = day["nrec"]
+    if windows is None:
+        windows = HI_DAY_WINDOWS[method]
+    head = f"phase 11 highorder {label} day, {method}"
     interp, secs, (card, host, host_s), peak = hi_fit("exact", device, day,
-                                                      nrec)
-    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+                                                      nrec, method)
+    rss_peak, rss = rss_gib()
     C, chi2 = interp.Coeffs, interp.chi_sq
     prof = interp.timer.report()
     fit_s, copy_s = prof["fit_records"], prof["copy_to_host"]
     value, _ = oracle_day(nrec)
     empty = ~np.isfinite(value).any(1)
     nan = np.isnan(chi2)
-    want = EXACT_EIGHS * fitted(nrec, device) + 1
-    print(f"phase 11 highorder (a) day, exact: Interpolate.calc_coeffs of "
-          f"{nrec} records (the oracle's QC'd bytes, chunks "
-          f"{chunk_sizes(nrec)}) {secs:.3f} s, of which fit_records "
-          f"{fit_s:.3f} s = {nrec / fit_s:.3f} records/s and the copies of "
-          f"C, dC, chi2 and alpha to the host {copy_s:.3f} s [{CARD}]",
-          flush=True)
-    print(f"phase 11 highorder (a) day eighs: card {card / nrec:.3f}, host "
-          f"{host / nrec:.3f} a record ({host} = {EXACT_EIGHS} x "
-          f"{fitted(nrec, device)} records with the card's padding + R's "
-          f"once), host_eigh {host_s:.3f} s = "
+    per = DAY_EIGHS[method]
+    want = per * fitted(nrec, device) + 1
+    print(f"{head}: Interpolate.calc_coeffs of {nrec} records (the "
+          f"oracle's QC'd bytes, chunks {chunk_sizes(nrec)}) {secs:.3f} s, "
+          f"of which fit_records {fit_s:.3f} s = {nrec / fit_s:.3f} "
+          f"records/s [{CARD}]", flush=True)
+    print(f"{head}: the copies of C, dC, chi2 and alpha to the host "
+          f"{copy_s:.3f} s [{CARD}]", flush=True)
+    print(f"{head} eighs: card {card / nrec:.3f}, host {host / nrec:.3f} a "
+          f"record ({host} = {per} x {fitted(nrec, device)} records with the "
+          f"card's padding + R's once) [{CARD}]", flush=True)
+    print(f"{head}: host_eigh {host_s:.3f} s = "
           f"{host_s / max(host, 1) * 1e3:.2f} ms a matrix of 1200 x 1200 "
           f"[{CARD}]", flush=True)
-    print(f"phase 11 highorder (a) day memory: peak device {peak:.3f} GiB, "
-          f"peak host RSS {rss:.3f} GiB (the day's covariance "
-          f"{interp.Covariance.nbytes / 2**30:.3f} GiB) [{CARD}]", flush=True)
+    print(f"{head}: peak device memory {peak:.3f} GiB"
+          + (f" (the unsliced 32-record window's {GCV_WINDOW_PEAK_GIB} GiB)"
+             if method == "gcv" else "") + f" [{CARD}]", flush=True)
     if device == "cuda":
-        print_pinned(f"after phase 11's day [{CARD}]")
+        print_pinned(f"after phase 11's {method} day [{CARD}]")
+    print(f"{head}: host RSS peak {rss_peak:.3f} GiB, now {rss:.3f} GiB (the "
+          f"day's covariance {interp.Covariance.nbytes / 2**30:.3f} GiB) "
+          f"[{CARD}]", flush=True)
     check(C.shape == (nrec, 1200) and chi2.shape == (nrec,),
           f"day: C {C.shape}, chi2 {chi2.shape}")
     check(not (nan & ~empty).any(),
@@ -1975,24 +2035,29 @@ def phase_highorder_day(device="cuda", day=DAY,
     check(card == 0 and host == want,
           f"day: {card} eighs on the card, {host} on the host; 0 and {want} "
           "expected")
+    if method == "gcv" and device == "cuda":
+        check(peak < GCV_WINDOW_PEAK_GIB,
+              f"day: peak device memory {peak:.3f} GiB, not under the "
+              f"32-record window's {GCV_WINDOW_PEAK_GIB} GiB")
     for tag, start, n in windows:
-        what = f"order {HI_ORDER} day, {tag}"
+        what = f"order {HI_ORDER} {method} day, {tag}"
         rel, _, _, line = held_to_hi_oracle(what, interp, tag, start, n)
-        held_to_bars(f"{what}: chi2 vs its oracle", rel, CHI2_MEDIAN_TOL,
-                     CHI2_MAX_TOL)
-        print(f"phase 11 highorder (a) day {line}", flush=True)
-    print(f"phase 11 highorder (a) day: {int(nan.sum())} NaN records, all "
-          f"QC'd empty ({int(empty.sum())} empty), 0 negative chi2",
-          flush=True)
+        if method == "chi2":
+            held_to_bars(f"{what}: chi2 vs its oracle", rel, CHI2_MEDIAN_TOL,
+                         CHI2_MAX_TOL)
+        print(f"{head} {line}", flush=True)
+    print(f"{head}: {int(nan.sum())} NaN records, all QC'd empty "
+          f"({int(empty.sum())} empty), 0 negative chi2", flush=True)
     return interp
 
 
 def phase_highorder_windows(device="cuda", windows=HI_WINDOWS):
     """Phase 11 (b): the windows of HI_WINDOWS through calc_coeffs, each
     against its JAX oracle: NaN set, no negative chi2, the W-weighted field
-    bars; chi2 to the fit bars in fast mode and to their max in exact_grid
-    (phase 4's), printed in gcv (phase 4c's); host eighs a record (the
-    card's padding to 128 records included) and none on the card."""
+    bars; chi2 to the fit bars in fast and manual and to their max in
+    exact_grid (phase 4's); manual's alpha the config's for every record;
+    host eighs a record (the card's padding to 128 records included) and
+    none on the card."""
     for tag, method, mode, nrec in windows:
         interp, secs, (card, host, host_s), peak = hi_fit(mode, device,
                                                           nrec=nrec,
@@ -2006,19 +2071,15 @@ def phase_highorder_windows(device="cuda", windows=HI_WINDOWS):
                   f"oracle max {np.nanmax(rel):.3e} (bar {CHI2_MAX_TOL})")
         else:
             # fast: AtWA's, the whitened pencil's and the final solve's a
-            # record; gcv: AtWA's and the final solve's, R's once
-            want = ({"fast": 3, "gcv": 2}[tag] * fitted(nrec, device)
-                    + (method == "gcv"))
-            if mode == "fast":
-                held_to_bars(f"{what}: chi2 vs its oracle", rel,
-                             CHI2_MEDIAN_TOL, CHI2_MAX_TOL)
-        alphas = ""
-        if method == "gcv":
-            o = np.load(ROOT / "tests" / "oracle"
-                        / f"day1000_seed1_highorder_{tag}.npz")
-            alphas = (f"; log10 alpha {np.round(np.log10(reg), 3).tolist()}"
-                      f", the oracle's "
-                      f"{np.round(np.log10(o['reg'][:nrec, 0]), 3).tolist()}")
+            # record; manual: the final solve's
+            want = {"fast": 3, "manual": 1}[tag] * fitted(nrec, device)
+            held_to_bars(f"{what}: chi2 vs its oracle", rel, CHI2_MEDIAN_TOL,
+                         CHI2_MAX_TOL)
+        if method == "manual":
+            alpha = regparam.manual_reg_param("0thorder")
+            check(np.allclose(reg, alpha, rtol=1e-12, atol=0.0),
+                  f"{what}: alpha is not the config's {alpha:g}")
+            line += f"; alpha {alpha:g} for every record"
         fit_s = interp.timer.report()["fit_records"]
         print(f"phase 11 highorder (b) fit, {tag} (REGULARIZATION_METHOD = "
               f"{method}, REGPARAM_MODE = {mode}): calc_coeffs of {nrec} "
@@ -2028,7 +2089,7 @@ def phase_highorder_windows(device="cuda", windows=HI_WINDOWS):
               f"of 1200 x 1200, the card's padding to "
               f"{fitted(nrec, device)} records included; {host_s:.3f} s in "
               f"host_eigh); peak device memory {peak:.3f} GiB [{CARD}]; "
-              f"{line}{alphas}", flush=True)
+              f"{line}", flush=True)
         check(card == 0 and host == want, f"{what}: {card} eighs on the "
               f"card, {host} on the host; 0 and {want} expected")
         del interp
@@ -2069,8 +2130,9 @@ def phase_highorder_lambda(device="cuda"):
     check(card == 0 and host == len(HI_SWEEP), "lambda sweep: eighs")
 
 
-def phase_highorder_keogram(interp, device="cuda", axes=HI_KEOGRAM):
-    """Phase 11 (c): the day's product, every fitted record at the
+def phase_highorder_keogram(interp, device="cuda", axes=HI_KEOGRAM,
+                            label="(c)"):
+    """Phase 11 (c) and (g): the day's product, every fitted record at the
     meridian keogram's points through Estimate.evaluate_records of a
     mem_estimate (no file, no copy of the covariance) with the FoV mask:
     one launch of the tiled kernel (evaluate_records' chunk holds 2^27
@@ -2128,7 +2190,7 @@ def phase_highorder_keogram(interp, device="cuda", axes=HI_KEOGRAM):
           f"{float(sup[r]):.3e} + {GROSS_TOL} x the point's gross sum "
           f"{float(gross[r, i]):.3e}")
     live = int((~nan).any(1).sum())
-    print(f"phase 11 highorder (c) keogram: evaluate_records({nrec} fitted "
+    print(f"phase 11 highorder {label} keogram: evaluate_records({nrec} fitted "
           f"records x {glat.size} meridian points, FoV mask) {secs:.3f} s "
           f"({nrec * glat.size / secs:.4e} points/s: "
           f"{_phases(est.timer.report())}), peak device memory "
@@ -2147,8 +2209,12 @@ def phase_highorder_keogram(interp, device="cuda", axes=HI_KEOGRAM):
 
 
 def phase_highorder_lobo(device="cuda", day=DAY):
-    """Phase 11 (d): lobo_cv against the highorder_lobo oracle."""
+    """Phase 11 (d): lobo_cv of the first HI_LOBO_NREC records against
+    the highorder_lobo oracle's rows for them (its argmin and summed
+    scores taken over those rows)."""
     o = np.load(ROOT / "tests" / "oracle" / "day1000_seed1_highorder_lobo.npz")
+    per_o = o["per"][:HI_LOBO_NREC]
+    scores_o = per_o.sum(axis=(0, 1))
     data = day_data(day)
     _, lat, lon, alt, _, _ = qc(data)
     value, error = oracle_day(HI_LOBO_NREC)
@@ -2163,23 +2229,23 @@ def phase_highorder_lobo(device="cuda", day=DAY):
     _sync(device)
     lobo_s = time.perf_counter() - t0
     card, host, host_s = eighs_since(c0)
-    rel = np.abs(per - o["per"]) / np.abs(o["per"])
-    best = la[int(np.argmin(scores))]
+    rel = np.abs(per - per_o) / np.abs(per_o)
+    best, best_o = la[int(np.argmin(scores))], la[int(np.argmin(scores_o))]
     n = per.size
     print(f"phase 11 highorder (d) sweep: lobo_cv({HI_LOBO_NREC} records x "
           f"20 beams x {len(la)} log10 alphas {la[0]:g}..{la[-1]:g}) "
           f"{lobo_s:.3f} s, eighs card {card} host {host} "
           f"(lobo_scores_per_s {n / lobo_s:.1f}, host_eigh_seconds "
-          f"{host_s:.3f}); argmin {best:g} (oracle "
-          f"{float(o['best_log10_alpha']):g}); per-entry rel median "
+          f"{host_s:.3f}); argmin {best:g} (oracle {best_o:g}); per-entry "
+          f"rel median "
           f"{np.median(rel):.4e} (bar {HI_LOBO_ENTRY_MEDIAN_TOL}), by alpha "
           f"{np.round(np.median(rel, axis=(0, 1)), 5).tolist()}; summed "
-          f"scores rel {float(np.max(np.abs(scores - o['scores']) / o['scores'])):.3e}",
+          f"scores rel {float(np.max(np.abs(scores - scores_o) / scores_o)):.3e}",
           flush=True)
-    check(per.shape == o["per"].shape, f"lobo_cv per {per.shape}")
+    check(per.shape == per_o.shape, f"lobo_cv per {per.shape}")
     check(card == 0 and host == n, f"lobo_cv: {card} eighs on the card, "
           f"{host} on the host; 0 and {n} expected")
-    check(best == float(o["best_log10_alpha"]), "lobo_cv argmin")
+    check(best == best_o, "lobo_cv argmin")
     check(np.median(rel) <= HI_LOBO_ENTRY_MEDIAN_TOL,
           f"lobo_cv per-entry median {np.median(rel):.3e}")
 
@@ -2369,7 +2435,8 @@ def phase_highorder(device="cuda", shape=(512, 512, 128),
                     finite_frac=FINITE_FRAC):
     """Phase 11: BASELINE config 3 through the port's main path; returns
     the HI_ORDER kernel's JSON entry with its launches on this path (all
-    of them grid_eval_tiled.cu's: none of grid_eval.cu)."""
+    of them grid_eval_tiled.cu's: none of grid_eval.cu), counted from 0
+    over (a)-(e) and again over (g), not over (f)'s comparisons."""
     grid_eval_cuda.launches = grid_eval_cuda.tiled_launches = 0
     phase_highorder_basis()
     interp = phase_highorder_day(device)
@@ -2386,7 +2453,21 @@ def phase_highorder(device="cuda", shape=(512, 512, 128),
           f"{keogram} and {launched} times of {launches}, grid_eval.cu "
           f"{grid_eval_cuda.launches} times")
     entry = phase_highorder_kernel(interp.Coeffs, device)
-    entry["launches"] = launches
+    # (g): one day in host memory at a time
+    del interp
+    gc.collect()
+    print(f"phase 11 highorder (g): the exact day dropped, host RSS now "
+          f"{rss_gib()[1]:.3f} GiB [{CARD}]", flush=True)
+    grid_eval_cuda.launches = grid_eval_cuda.tiled_launches = 0
+    interp = phase_highorder_day(device, method="gcv", label="(g)")
+    gcv_keogram = phase_highorder_keogram(interp, device, label="(g)")
+    check(grid_eval_cuda.tiled_launches == gcv_keogram
+          and gcv_keogram == int(device == "cuda")
+          and grid_eval_cuda.launches == 0,
+          f"phase 11 (g): the keogram launched the tiled kernel "
+          f"{gcv_keogram} times of {grid_eval_cuda.tiled_launches}, "
+          f"grid_eval.cu {grid_eval_cuda.launches} times")
+    entry["launches"] = launches + grid_eval_cuda.tiled_launches
     return entry
 
 
@@ -2410,6 +2491,9 @@ def main():
     if sys.argv[1:2] == ["--parallel-child"]:
         return parallel_child(int(sys.argv[2]), *sys.argv[3:7])
     phase_device()
+    for what, nrec, uncut in TIME_CUTS:
+        print(f"cut for the run's time limit: {what} on {nrec} records "
+              f"(from {uncut})", flush=True)
     phase_build()
     kernel = phase_kernel()
     # the main path: launch counts from here on

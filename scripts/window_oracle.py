@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Build tests/oracle/day1000_seed1_window64_<tag>.npz, or, for the tags
 timeaxis, radbasfun, lobo and highorder_{exact,fast,exact_tail,gcv,
-exact_grid,lobo}, tests/oracle/day1000_seed1_<tag>.npz (highorder_sweep:
-see below).
+gcv_tail,manual,exact_grid,lobo}, tests/oracle/day1000_seed1_<tag>.npz
+(highorder_sweep: see below).
 
 The JAX package's CPU float64 fit of the first 64 records of the seed-1
 synthetic day (nrec=1000, nan_frac=0.03, bad_frac=0.01, basis-projected
@@ -56,13 +56,16 @@ feeds the port).  At 580 points against 1200 basis functions every record
 is underdetermined.  Stores C [128, 1200], chi2 [128] and reg [128, 1] in
 tests/oracle/day1000_seed1_highorder_<mode>.npz; no covariance (1.5 GB).
 
-highorder_exact_tail, highorder_gcv, highorder_exact_grid: the same at
-that order on other windows of the same bytes (HI_WINDOWS): records
-896-999 in exact mode (the day's last 128-record chunk, 104 records,
-which the card pads to 128), the first 32 with REGULARIZATION_METHOD =
-gcv (exact mode), the first 8 in exact_grid (2 records a call: a call
-decomposes 101 matrices a record at once).  Each also stores ``start``,
-its first record's index in the day.
+highorder_exact_tail, highorder_gcv, highorder_gcv_tail, highorder_manual,
+highorder_exact_grid: the same at that order on other windows of the same
+bytes (HI_WINDOWS): records 896-999 in exact mode (the day's last
+128-record chunk, 104 records, which the card pads to 128), the first 32
+and the last 32 (968-999, in that padded chunk) with
+REGULARIZATION_METHOD = gcv (exact mode), the first 128 with
+REGULARIZATION_METHOD = manual (alpha HI_MANUAL_PARAMS, the config's
+MANUAL_PARAMS['0thorder']), the first 8 in exact_grid (2 records a call:
+a call decomposes 101 matrices a record at once).  Each also stores
+``start``, its first record's index in the day.
 
 highorder_lobo: the leave-one-beam-out sweep at that order on the first
 HI_LOBO_NREC records (the same bytes), over all 20 beams and
@@ -86,7 +89,8 @@ each beside other work on the same 8 cores (the JAX package's float64
 eigendecompositions at n = 1200 run its deflation ladder);
 highorder_exact_tail 301.6 s on 4 of the 8 cores and highorder_exact_grid
 335.9 s on 3 of them, side by side, then highorder_gcv 1,277.7 s on the
-same 3.
+same 3; highorder_gcv_tail 779.1 s on 4 of them and highorder_manual
+87.1 s on 3, side by side.
 
 Usage:  JAX_PLATFORMS=cpu python scripts/window_oracle.py [tag]
         (default tag: exact_grid)
@@ -135,7 +139,12 @@ HI_LOBO_NREC = 4
 # (0, HI_NREC, "chi2", mode, HI_CHUNK)
 HI_WINDOWS = {"exact_tail": (896, 104, "chi2", "exact", HI_CHUNK),
               "gcv": (0, 32, "gcv", "exact", HI_CHUNK),
+              "gcv_tail": (968, 32, "gcv", "exact", HI_CHUNK),
+              "manual": (0, 128, "manual", "exact", HI_CHUNK),
               "exact_grid": (0, 8, "chi2", "exact_grid", 2)}
+# REGULARIZATION_METHOD = manual's alpha: the config's MANUAL_PARAMS default
+# for 0thorder (raw, the reference's units)
+HI_MANUAL_PARAMS = [1e-23]
 HI_LOBO_ALPHAS = [float(a) for a in range(-29, -20)]
 PROFILE = "chapman,1e11,300,50"
 TIME_COUPLING = 1e-4
@@ -312,9 +321,10 @@ def highorder(mode):
         e = o["error"][start:start + nrec]
         C, chi2, reg = [], [], []
         for s in range(0, nrec, chunk):
-            c, _, x2, rp = fit_records(v[s:s + chunk], e[s:s + chunk],
-                                       A, R[None], method=method,
-                                       regparam_mode=fmode)
+            c, _, x2, rp = fit_records(
+                v[s:s + chunk], e[s:s + chunk], A, R[None], method=method,
+                regparam_mode=fmode,
+                manual_params=HI_MANUAL_PARAMS if method == "manual" else None)
             C.append(np.asarray(c))
             chi2.append(np.asarray(x2))
             reg.append(np.asarray(rp))

@@ -94,16 +94,15 @@ def _env():
     return env
 
 
-def _held(C, chi2, rp, mode, A, day, chi2_tol, wf_tol, tail=False):
-    """A fit of n records (NREC, or fewer) against its oracle's first n:
-    the NaN set, no negative chi2, chi2 and the W-weighted field within
-    their bars; returns |dlog10 alpha|.  ``tail``: the records are the
-    day's from TAIL (the oracle's rows begin there)."""
+def _held(C, chi2, rp, mode, A, values, errors, chi2_tol, wf_tol, start=0):
+    """A fit of n records (of values and errors, NREC or fewer) against its
+    oracle's first n: the NaN set, no negative chi2, chi2 and the
+    W-weighted field within their bars; returns |dlog10 alpha|.  ``start``:
+    the records are the day's from there (the oracle's rows begin
+    there)."""
     o = np.load(ORACLE / f"day1000_seed1_highorder_{mode}.npz")
     n = len(chi2)
-    assert int(o["start"] if "start" in o else 0) == (TAIL if tail else 0)
-    values, errors = ((day["tail_values"], day["tail_errors"]) if tail
-                      else (day["values"], day["errors"]))
+    assert int(o["start"] if "start" in o else 0) == start
     np.testing.assert_array_equal(np.isnan(chi2), np.isnan(o["chi2"][:n]))
     ok = ~np.isnan(chi2)
     assert (chi2[ok] >= 0).all()
@@ -151,7 +150,8 @@ def test_fast_fit_matches_jax(day):
     C, _, chi2, rp = (x.numpy() for x in fit_records(
         day["values"], day["errors"], A, tm.eval_psi()[None],
         regparam_mode="fast", device="cpu"))
-    dla = _held(C, chi2, rp, "fast", A, day, 2e-2, 1e-2)
+    dla = _held(C, chi2, rp, "fast", A, day["values"], day["errors"], 2e-2,
+                1e-2)
     assert dla.max() <= 1e-6
 
 
@@ -192,7 +192,8 @@ def test_exact_fit_finishes_at_default_threads(day, tmp_path):
     assert "DLASWP" not in res.stderr
     got = np.load(out)
     assert int(got["nthreads"]) == 8
-    _held(got["C"], got["chi2"], got["rp"], "exact", A, day, 0.1, 5e-2)
+    _held(got["C"], got["chi2"], got["rp"], "exact", A, day["values"],
+          day["errors"], 0.1, 5e-2)
 
 
 def test_tail_exact_fit_matches_jax(day):
@@ -208,7 +209,8 @@ def test_tail_exact_fit_matches_jax(day):
     C, _, chi2, rp = (x.numpy() for x in fit_records(
         day["tail_values"], day["tail_errors"], A, tm.eval_psi()[None],
         regparam_mode="exact", device="cpu"))
-    _held(C, chi2, rp, "exact_tail", A, day, 0.1, 5e-2, tail=True)
+    _held(C, chi2, rp, "exact_tail", A, day["tail_values"],
+          day["tail_errors"], 0.1, 5e-2, start=TAIL)
 
 
 def test_gcv_fit_matches_jax(day):
@@ -225,7 +227,8 @@ def test_gcv_fit_matches_jax(day):
     C, _, chi2, rp = (x.numpy() for x in fit_records(
         day["values"][:2], day["errors"][:2], A, tm.eval_psi()[None],
         method="gcv", regparam_mode="exact", device="cpu"))
-    _held(C, chi2, rp, "gcv", A, day, 2e-2, 1e-2)
+    _held(C, chi2, rp, "gcv", A, day["values"][:2], day["errors"][:2],
+          2e-2, 1e-2)
 
 
 def test_exact_grid_fit_matches_jax(day):
@@ -240,7 +243,8 @@ def test_exact_grid_fit_matches_jax(day):
     C, _, chi2, rp = (x.numpy() for x in fit_records(
         day["values"][:2], day["errors"][:2], A, tm.eval_psi()[None],
         regparam_mode="exact_grid", device="cpu"))
-    _held(C, chi2, rp, "exact_grid", A, day, 2e-2, 1e-2)
+    _held(C, chi2, rp, "exact_grid", A, day["values"][:2],
+          day["errors"][:2], 2e-2, 1e-2)
 
 
 BATCHED_CHILD = r"""

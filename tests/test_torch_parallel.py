@@ -93,6 +93,9 @@ ev = GridEvaluator(model, tuple(d["band"]), device="cpu")
 res["grid"] = grid_eval_sharded(ev, d["Cg"], d["glat"], d["glon"], d["galt"],
                                 mesh).numpy()
 np.savez(out + f".{rank}.npz", **res)
+# gloo's threads joined before the interpreter exits: without this a child
+# could abort at exit ("terminate called without an active exception")
+torch.distributed.destroy_process_group()
 print("child", rank, "ok", flush=True)
 """.replace("SETTINGS", repr(SETTINGS))
 

@@ -16,8 +16,9 @@ every per-record ``jnp.where`` a ``torch.where`` on the batch and every
       instead of the cutoff).
 * gcv: the exact leave-one-out identity minimized by scipy's 1-D
   Nelder-Mead (``nelder_mead_1d``, maxfev accounting included), over the
-  anchored objective ('exact', ``gcv_reg_param_x``) or the whitened one
-  ('fast', ``gcv_reg_param_fast``).
+  anchored objective ('exact', ``gcv_reg_param_x``; its records in slices
+  of at most GCV_SLICE_BYTES a tensor) or the whitened one ('fast',
+  ``gcv_reg_param_fast``).
 * manual: the reference's hardcoded constants (interpolate.py:353-381).
 
 The chi2 searches take an optional TAU vector (data-informed
@@ -39,9 +40,9 @@ import torch
 
 from .solve import (EPS64, HOST_EIGH_SLICE_BYTES, TINY64, _keep_mask, _mv,
                     alpha_of_log, anchor_chi2, batched_inv, chi2_from_eig_x,
-                    cutoff_chi2_x, deflated_diag, make_anchor, norm_scale,
-                    normalized_eigh, project, select_anchor, sym_pinv_apply,
-                    whiten_pencil, whitened_chi2)
+                    cutoff_chi2_x, deflated_diag, even_slices, make_anchor,
+                    norm_scale, normalized_eigh, project, select_anchor,
+                    sym_pinv_apply, whiten_pencil, whitened_chi2)
 
 # reference constants (interpolate.py:173, 199-202)
 SCALE_FACTORS = (0.6, 0.7, 0.8, 0.9, 1.0)
@@ -419,6 +420,12 @@ NM_FATOL = 1e-4
 NM_MAXITER = 200  # scipy default N * 200 for N = 1
 NM_MAXFEV = 200  # scipy default N * 200 function evaluations for N = 1
 _LOG10_2 = 0.30102999566398
+# the most bytes of one float64 [records, candidates, n, n] or [records,
+# candidates, points, n] tensor of the anchored GCV objective, which takes
+# its record batch in slices that keep each within it (``gcv_slices``): at
+# nbasis 1200 a 128-record batch of five candidates is 7.4 GB a tensor,
+# and the objective holds several
+GCV_SLICE_BYTES = 2 << 30
 
 
 def nelder_mead_1d(f, x0):
@@ -481,9 +488,19 @@ def gcv_basis_bundle(V, AtWA, R, AtWb, A):
     """Per-basis precomputation of the anchored GCV objective
     (regparam.py:675-686): the projections of both pencil sides, the
     projected rhs and the design rows in the basis, T = A V.  V is one
-    record's basis [B, n, n] or a shared one [n, n]."""
-    return {"PA": project(AtWA, V), "PR": project(R, V),
-            "u": _mv(V.transpose(-1, -2), AtWb), "T": A @ V}
+    record's basis [B, n, n] or a shared one [n, n].  Every field has the
+    record axis first: B for a per-record term, 1 for a shared one, which
+    broadcasts (``gcv_bundle_records``)."""
+    bundle = {"PA": project(AtWA, V), "PR": project(R, V),
+              "u": _mv(V.transpose(-1, -2), AtWb), "T": A @ V}
+    return {k: v if k == "u" or v.dim() == 3 else v[None]
+            for k, v in bundle.items()}
+
+
+def gcv_bundle_records(bundle, sl):
+    """The records ``sl`` of a gcv_basis_bundle: its per-record fields
+    sliced, its shared ones (record axis 1) as they are."""
+    return {k: v if v.shape[0] == 1 else v[sl] for k, v in bundle.items()}
 
 
 def _loo_sum(yhat, h, b, W, mask):
@@ -500,18 +517,41 @@ def _summed(obj, point_sum):
     return obj if point_sum is None else point_sum(obj)
 
 
+def gcv_slices(nrec, ncand, n, npts):
+    """The record slices gcv_objective_anchored takes a batch of nrec
+    records and ncand candidates in: as few as keep each of its float64
+    [b, ncand, n, n] and [b, ncand, npts, n] tensors within GCV_SLICE_BYTES
+    (one record at least), of equal size but the last."""
+    return even_slices(nrec,
+                       GCV_SLICE_BYTES // (ncand * max(n, npts) * n * 8))
+
+
 def gcv_objective_anchored(a_log, bundle, b, W, mask):
     """GCV objective at 10^a_log [B, K] from a basis bundle (the float64
     path of gcv_objective_anchored, regparam.py:689-767, keep_resolve
     off): M = PA + alpha PR, trace-normalized; keep from its deflated
     diagonal; one ridged inverse of the unit-diagonal kept block gives both
     yhat_i = t_i'M^-1 u / s and h_i = W_i t_i'M^-1 t_i / s.
-    b, W [B, P] (masked), mask [B, P] bool.  Returns [B, K]."""
+    b, W [B, P] (masked), mask [B, P] bool.  Returns [B, K].
+
+    The records go in ``gcv_slices``, each float64 [b, K, n, n] and
+    [b, K, P, n] tensor at most GCV_SLICE_BYTES: records are independent
+    in every step, so the slicing changes the schedule, not the
+    arithmetic (at the production order a batch is one slice)."""
+    parts = gcv_slices(a_log.shape[0], a_log.shape[1], bundle["u"].shape[-1],
+                       b.shape[-1])
+    out = [_gcv_objective_slice(a_log[sl], gcv_bundle_records(bundle, sl),
+                                b[sl], W[sl], mask[sl])
+           for sl in parts]
+    return out[0] if len(out) == 1 else torch.cat(out)
+
+
+def _gcv_objective_slice(a_log, bundle, b, W, mask):
+    """gcv_objective_anchored of one record slice."""
     al = alpha_of_log(a_log)
-    # per-record terms [B, n, n] gain the candidate axis; shared [n, n] ones
-    # (R projected on R's basis) broadcast as they are
-    PA, PR, T = (x[:, None] if x.dim() == 3 else x
-                 for x in (bundle["PA"], bundle["PR"], bundle["T"]))
+    # the candidate axis after the record axis (1 for a shared term, as R
+    # projected on R's basis, which broadcasts)
+    PA, PR, T = (bundle[k][:, None] for k in ("PA", "PR", "T"))
     M = PA + PR * al[..., None, None]
     s = norm_scale(M)
     Mn = M * (1.0 / s)[..., None, None]

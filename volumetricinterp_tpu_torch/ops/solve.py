@@ -178,10 +178,16 @@ def eigh_slices(X):
     """The slices host_eigh takes a batch X [B, n, n] in: as few as keep
     each at most HOST_EIGH_SLICE_BYTES (one matrix at least), of equal
     size but the last."""
-    most = max(1, HOST_EIGH_SLICE_BYTES
-               // (X.shape[-1] * X.shape[-2] * X.element_size()))
-    per = -(-X.shape[0] // -(-X.shape[0] // most))  # <= most
-    return [slice(s, s + per) for s in range(0, X.shape[0], per)]
+    return even_slices(X.shape[0], HOST_EIGH_SLICE_BYTES
+                       // (X.shape[-1] * X.shape[-2] * X.element_size()))
+
+
+def even_slices(n, most):
+    """range(n) in as few slices of at most ``most`` items (one at least)
+    as will do, of equal size but the last."""
+    most = max(1, most)
+    per = -(-n // -(-n // most))  # <= most
+    return [slice(s, s + per) for s in range(0, n, per)]
 
 
 def _split_over_pool(fn, X, *rest):
