@@ -1,0 +1,9 @@
+"""The device's idle share in the traced product requests: 1 - (the union
+of its CUDA activity intervals / the traced wall time)."""
+
+
+def read(run):
+    tr = run["trace"]
+    if run["traffic"]["op"] != "product" or tr is None or tr["busy_s"] <= 0.0:
+        return None
+    return 1.0 - tr["busy_s"] / tr["window_s"]
