@@ -34,7 +34,7 @@ from .utils.device import check_device
 from .utils.hull import check_hull as hull_mask
 from .utils.hull import hull_equations
 from .utils.hull import np_check_hull as np_hull_mask
-from .utils.logging import PhaseTimer
+from .utils.logging import PhaseTimer, span
 
 
 class Estimate:
@@ -242,7 +242,9 @@ class Estimate:
         (an empty array for no times or an empty grid).  Records run in
         chunks whose [chunk, npoints] float32 output stays <= 0.5 GB on the
         device; each chunk is one kernel launch with the FoV mask fused
-        (sphharmlag) or one pass of the RBF evaluator (radbasfun)."""
+        (sphharmlag) or one pass of the RBF evaluator (radbasfun).  The
+        ``grid_eval`` phase's spans, per chunk: ``grid_launch``,
+        ``grid_to_host`` and ``grid_store``."""
         times = list(times)
         shape = np.shape(gdlat)
         npts = int(np.prod(shape))
@@ -256,10 +258,14 @@ class Estimate:
         flat = out.reshape(len(times), npts)
         chunk = max(1, int(2 ** 27 // npts))
         inside = g["inside"] if check_hull else None
-        with self.timer.phase("grid_eval"):  # kernel launches + D2H copies
+        with self.timer.phase("grid_eval"):
             for s in range(0, len(times), chunk):
-                blk = ev.eval_records_flat(ev.fold_coeffs(Cs[s:s + chunk]),
-                                           g["lat"], g["lon"], g["alt"],
-                                           inside)
-                flat[s:s + chunk] = blk.cpu().numpy()
+                with span("grid_launch"):  # the fold and the enqueue
+                    blk = ev.eval_records_flat(
+                        ev.fold_coeffs(Cs[s:s + chunk]), g["lat"], g["lon"],
+                        g["alt"], inside)
+                with span("grid_to_host"):  # the kernel's wait and the D2H
+                    host = blk.cpu()
+                with span("grid_store"):
+                    flat[s:s + chunk] = host.numpy()
         return out

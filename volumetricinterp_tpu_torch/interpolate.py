@@ -44,7 +44,8 @@ from .ops import regparam as regparam_mod
 from .ops.solve import cutoff_chi2, sym_pinv_apply
 from .utils.device import check_device
 from .utils.hull import compute_hull_vertices
-from .utils.logging import PhaseTimer, fit_quality_report, logger
+from .utils.logging import (PhaseTimer, carry, fit_quality_report, logger,
+                            span)
 
 
 class Interpolate:
@@ -409,7 +410,14 @@ class Interpolate:
         runs one chunk ahead on a worker thread and, on the card, a side
         stream, so that it overlaps the search of the chunk before; the
         two threads' host_eigh calls each have their own pool of host
-        threads (ops/solve.py)."""
+        threads (ops/solve.py).
+
+        Inside ``fit_records`` the main thread's spans are
+        ``lookahead_wait`` (its wait for the worker), ``search_solve``
+        (fit_records from the prepared chunk to its results),
+        ``device_wait`` (the stream's synchronize; zero length off the
+        card) and ``copy_to_host``; the worker's is ``prepare_chunk``, a
+        child of ``fit_records`` (utils/logging.carry)."""
         names = self.regularization_list
         nrec = value.shape[0]
         nb = self.model.nbasis
@@ -429,8 +437,9 @@ class Interpolate:
         mesh = self._mesh()
 
         def finish(s, e, res):
-            if res[1].is_cuda:  # the chunk's device work, apart from its copy
-                torch.cuda.current_stream(res[1].device).synchronize()
+            with span("device_wait"):  # the chunk's device work, not its copy
+                if res[1].is_cuda:
+                    torch.cuda.current_stream(res[1].device).synchronize()
             with self.timer.phase("copy_to_host"):
                 C_all[s:e], dC_all[s:e], c2_all[s:e], rp_all[s:e] = (
                     t.cpu().numpy() for t in res)
@@ -466,8 +475,9 @@ class Interpolate:
                 side.wait_stream(torch.cuda.current_stream(self.device))
 
             def stage(s, e):
-                with (torch.cuda.stream(side) if cuda
-                      else contextlib.nullcontext()):
+                with self.timer.phase("prepare_chunk"), (
+                        torch.cuda.stream(side) if cuda
+                        else contextlib.nullcontext()):
                     p = prepare_chunk(value[s:e], error[s:e], A_d, R_d,
                                       method, mode, self.device, reg_eig,
                                       reg_taus)
@@ -475,26 +485,30 @@ class Interpolate:
                         p["event"] = side.record_event()
                 return p
 
+            stage = carry(stage)
             with ThreadPoolExecutor(1) as pool:
                 ahead = (pool.submit(stage, starts[0], min(starts[0] + chunk,
                                                            nrec))
                          if starts else None)
                 for i, s in enumerate(starts):
                     e = min(s + chunk, nrec)
-                    prepared = ahead.result()
+                    with span("lookahead_wait"):
+                        prepared = ahead.result()
                     if i + 1 < len(starts):
                         s2 = starts[i + 1]
                         ahead = pool.submit(stage, s2, min(s2 + chunk, nrec))
-                    if cuda:
-                        main = torch.cuda.current_stream(self.device)
-                        main.wait_event(prepared.pop("event"))
-                        for t in _tensors(prepared):
-                            t.record_stream(main)
-                    finish(s, e, fit_records(
-                        value[s:e], error[s:e], A_d, R_d, method=method,
-                        manual_params=manual_params, regparam_mode=mode,
-                        device=self.device, reg_eig=reg_eig,
-                        reg_taus=reg_taus, prepared=prepared))
+                    with span("search_solve"):
+                        if cuda:
+                            main = torch.cuda.current_stream(self.device)
+                            main.wait_event(prepared.pop("event"))
+                            for t in _tensors(prepared):
+                                t.record_stream(main)
+                        res = fit_records(
+                            value[s:e], error[s:e], A_d, R_d, method=method,
+                            manual_params=manual_params, regparam_mode=mode,
+                            device=self.device, reg_eig=reg_eig,
+                            reg_taus=reg_taus, prepared=prepared)
+                    finish(s, e, res)
         return C_all, dC_all, c2_all, rp_all
 
     def _mesh(self):

@@ -52,6 +52,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
+from ..utils.logging import span
+
 EPS64 = 2.220446049250313e-16  # the reference's f64 cutoff unit
 TINY64 = 2.2250738585072014e-308  # finfo(float64).tiny
 _LOG2_10 = 3.321928094887362
@@ -140,37 +142,40 @@ def host_eigh(X):
     21 GiB.  LAPACK decomposes each matrix on its own, so the slicing moves
     no bit."""
     global eigh_matrices, host_eigh_matrices, host_eigh_seconds
-    t0 = time.perf_counter()
     n = X[..., 0, 0].numel()
-    Xf = X.detach().reshape((-1,) + X.shape[-2:])
-    # to and from the card through page-locked buffers (PyTorch's caching
-    # host allocator reuses them): pageable copies ran at ~3.5 GB/s, 0.54 s
-    # of a 1.83 s sweep call (PERF.md); the results go back without a wait
-    card = X.device.type == "cuda"
-    w = torch.empty(Xf.shape[:-1], dtype=X.dtype, device=X.device)
-    V = torch.empty(Xf.shape, dtype=X.dtype, device=X.device)
-    for sl in eigh_slices(Xf):
-        Xh = Xf[sl]
-        if card:
-            Xh = torch.empty(Xh.shape, dtype=X.dtype,
-                             pin_memory=True).copy_(Xh)
-        parts = [p for p in torch.tensor_split(Xh, HOST_EIGH_THREADS)
-                 if len(p)]
-        res = list(_host_pool().map(torch.linalg.eigh, parts))
-        wh, Vh = w[sl], V[sl]
-        if card:
-            wh = torch.empty(wh.shape, dtype=X.dtype, pin_memory=True)
-            Vh = torch.empty(Vh.shape, dtype=X.dtype, pin_memory=True)
-        torch.cat([r[0] for r in res], out=wh)
-        torch.cat([r[1] for r in res], out=Vh)
-        if card:
-            w[sl].copy_(wh, non_blocking=True)
-            V[sl].copy_(Vh, non_blocking=True)
-    w, V = w.reshape(X.shape[:-1]), V.reshape(X.shape)
+    with span("host_eigh"):
+        t0 = time.perf_counter()
+        Xf = X.detach().reshape((-1,) + X.shape[-2:])
+        # to and from the card through page-locked buffers (PyTorch's
+        # caching host allocator reuses them): pageable copies ran at ~3.5
+        # GB/s, 0.54 s of a 1.83 s sweep call (PERF.md); the results go
+        # back without a wait
+        card = X.device.type == "cuda"
+        w = torch.empty(Xf.shape[:-1], dtype=X.dtype, device=X.device)
+        V = torch.empty(Xf.shape, dtype=X.dtype, device=X.device)
+        for sl in eigh_slices(Xf):
+            Xh = Xf[sl]
+            if card:
+                Xh = torch.empty(Xh.shape, dtype=X.dtype,
+                                 pin_memory=True).copy_(Xh)
+            parts = [p for p in torch.tensor_split(Xh, HOST_EIGH_THREADS)
+                     if len(p)]
+            res = list(_host_pool().map(torch.linalg.eigh, parts))
+            wh, Vh = w[sl], V[sl]
+            if card:
+                wh = torch.empty(wh.shape, dtype=X.dtype, pin_memory=True)
+                Vh = torch.empty(Vh.shape, dtype=X.dtype, pin_memory=True)
+            torch.cat([r[0] for r in res], out=wh)
+            torch.cat([r[1] for r in res], out=Vh)
+            if card:
+                w[sl].copy_(wh, non_blocking=True)
+                V[sl].copy_(Vh, non_blocking=True)
+        w, V = w.reshape(X.shape[:-1]), V.reshape(X.shape)
+        dt = time.perf_counter() - t0
     with _count_lock:
         eigh_matrices += n
         host_eigh_matrices += n
-        host_eigh_seconds += time.perf_counter() - t0
+        host_eigh_seconds += dt
     return w, V
 
 
