@@ -1123,9 +1123,13 @@ def phase_product(est, device="cuda", shape=(512, 512, 128), nrec=8,
     # the host FoV mask of the grid, before grid_eval below prepares another
     inside = est._prepared_grid["inside"].cpu().numpy().reshape(glat.shape)
     staged0 = vi_estimate.staged_slices
+    checks0 = vi_estimate.grid_hits, vi_estimate.grid_misses
     t0 = time.perf_counter()
     vol2 = est.evaluate_records(times, glat, glon, galt, check_hull=True)
     warm_s = time.perf_counter() - t0
+    check((vi_estimate.grid_hits - checks0[0],
+           vi_estimate.grid_misses - checks0[1]) == (1, 0),
+          "warm call did not find its grid in the cache")
     warm = {k: v - cold.get(k, 0.0) for k, v in est.timer.report().items()}
     # a CUDA output comes to the host through the Estimate's page-locked
     # ring, slice by slice; a CPU output is stored as it is

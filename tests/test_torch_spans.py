@@ -186,6 +186,7 @@ def test_the_product_reports_its_spans(fitted):
     times = [EPOCH + dt.timedelta(seconds=float(u))
              for u in interp.time[:4].mean(axis=1)]
     staged = estimate.staged_slices, estimate.staged_bytes
+    checks = estimate.grid_hits, estimate.grid_misses
     with vlog.span_log() as spans:
         out = est.evaluate_records(times, lat, lon, alt)
     assert out.shape == (4,) + lat.shape and np.isfinite(out).any()
@@ -196,6 +197,14 @@ def test_the_product_reports_its_spans(fitted):
     assert set(GRID_SPANS) <= set(rep)
     assert sum(rep[k] for k in GRID_SPANS) >= 0.95 * rep["grid_eval"]
     assert {s.parent for s in spans if s.name in GRID_SPANS} == {"grid_eval"}
+    # the check of the cached grid keeps its phase: a miss on the first
+    # call, a hit on the same grid after it
+    assert "grid_hash" in rep
+    assert (estimate.grid_hits, estimate.grid_misses) == (checks[0],
+                                                          checks[1] + 1)
+    est.evaluate_records(times, lat, lon, alt)
+    assert (estimate.grid_hits, estimate.grid_misses) == (checks[0] + 1,
+                                                          checks[1] + 1)
 
 
 def test_timer_totals_stay_exact_under_threads(monkeypatch):
