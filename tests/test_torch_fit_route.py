@@ -5,11 +5,9 @@ REGPARAM_MODE and method, in Interpolate's chunk pipeline, in the sharded
 layer and in Interpolate's reference-API methods, and so does every one of
 the leave-one-beam-out sweep's.
 
-On the CPU both routes are LAPACK, so what is held here is the route and
-the count: eigh_matrices - host_eigh_matrices (the matrices decomposed on
-the fit's device) is 0 on every fit path, and the host count a record is
-the one PERF.md §2 states for each mode.  The fits themselves are held
-against the JAX package by tests/test_torch_fit*.py."""
+What is held here is the count of matrices each fit path decomposes
+through solve.host_eigh (ROUTES and each test's own).  The fits
+themselves are held against the JAX package by tests/test_torch_fit*.py."""
 
 import subprocess
 import sys
@@ -35,16 +33,15 @@ NREC = 12  # make_records' records
 
 
 class Counted:
-    """The decompositions made inside the block: ``card`` on the fit's
-    device (solve.eigh), ``host`` through solve.host_eigh."""
+    """``host``: the decompositions made through solve.host_eigh inside
+    the block."""
 
     def __enter__(self):
-        self.e0, self.h0 = solve.eigh_matrices, solve.host_eigh_matrices
+        self.h0 = solve.host_eigh_matrices
         return self
 
     def __exit__(self, *exc):
         self.host = solve.host_eigh_matrices - self.h0
-        self.card = solve.eigh_matrices - self.e0 - self.host
 
 
 def _roots(rp):
@@ -87,7 +84,6 @@ def test_fit_records_decomposes_on_the_host(route):
         rp = fit_records(values, errors, A, R, method=method,
                          manual_params=[1e-23] * nreg, regparam_mode=mode,
                          device="cpu")[3].numpy()
-    assert n.card == 0
     assert n.host == ROUTES[route](rp)
     assert _roots(rp[:, 0] if nreg else rp) > 0 or nreg == 0
 
@@ -113,7 +109,7 @@ def test_interpolate_pipeline_decomposes_on_the_host(small_config_text):
     with Counted() as n:
         interp.calc_coeffs()
     assert np.isfinite(interp.chi_sq).sum() > nrec // 2
-    assert (n.card, n.host) == (0, 4 * nrec + 1)
+    assert n.host == 4 * nrec + 1
 
 
 CHILD = r"""
@@ -135,13 +131,12 @@ d = np.load(data)
 res = {}
 for method, mode in (("chi2", "exact"), ("chi2", "fast"), ("gcv", "exact"),
                      ("manual", "exact")):
-    e0, h0 = solve.eigh_matrices, solve.host_eigh_matrices
+    h0 = solve.host_eigh_matrices
     fit_records_sharded(d["values"], d["errors"], d["A"], d["R"],
                         make_mesh(1, 2), method=method,
                         manual_params=[1e-23], regparam_mode=mode,
                         device="cpu")
-    host = solve.host_eigh_matrices - h0
-    res[f"{method}_{mode}"] = (solve.eigh_matrices - e0 - host, host)
+    res[f"{method}_{mode}"] = solve.host_eigh_matrices - h0
 np.save(out + f".{rank}.npy", res)
 print("child", rank, "ok", flush=True)
 """
@@ -165,7 +160,7 @@ def test_sharded_fit_decomposes_on_the_host(tmp_path):
             "gcv_exact": 2 * NREC + 1, "manual_exact": half}
     for rank in range(2):
         got = np.load(f"{out}.{rank}.npy", allow_pickle=True).item()
-        assert got == {k: (0, v) for k, v in want.items()}, rank
+        assert got == want, rank
 
 
 def test_reference_api_decomposes_on_the_host(small_config_text):
@@ -186,20 +181,18 @@ def test_reference_api_decomposes_on_the_host(small_config_text):
     for name, (call, want) in calls.items():
         with Counted() as n:
             call()
-        assert n.card == 0, name
         assert n.host == want if want else n.host > 2, name
 
 
 def test_sweep_decomposes_on_the_host():
-    """lobo_cv decomposes nothing on the fit's device: its one
-    decomposition a (record, beam, alpha) takes the fit's host route
-    (tests/test_torch_sweep.py holds order_sweep's too)."""
+    """lobo_cv's one decomposition a (record, beam, alpha) takes the fit's
+    host route (tests/test_torch_sweep.py holds order_sweep's too)."""
     values, errors, A, R = make_records(2)
     beam = np.arange(A.shape[0]) % 4
     with Counted() as n:
         sweep.lobo_cv(values[:2], errors[:2], A, beam, R[0], [-20.0, -18.0],
                       device="cpu")
-    assert (n.card, n.host) == (0, 2 * 4 * 2)
+    assert n.host == 2 * 4 * 2
 
 
 def test_card_statistics_do_not_follow_the_batch():
@@ -240,7 +233,6 @@ def test_card_padding_is_dropped(route, monkeypatch):
     with Counted() as n:
         padded = [x.numpy() for x in fit_records(values, errors, A, R, **kw)]
     assert ops_fit.negative_chi2_reports == neg0
-    assert n.card == 0
     for got, want in zip(padded, plain):
         assert got.shape == want.shape
     C, _, chi2, rp = padded
@@ -270,7 +262,7 @@ def test_exact_grid_decomposes_no_empty_grid(monkeypatch):
     assert np.isnan(rp[4]) and np.isnan(plain[3][4, 0])
     np.testing.assert_array_equal(rp, plain[3][:, 0])
     np.testing.assert_array_equal(padded[2], plain[2])
-    assert (n.card, n.host) == (0, 101 * (NREC - 1) + 16 + 40 * _roots(rp))
+    assert n.host == 101 * (NREC - 1) + 16 + 40 * _roots(rp)
 
 
 def test_host_eigh_slices_keep_the_bits(monkeypatch):
@@ -286,7 +278,7 @@ def test_host_eigh_slices_keep_the_bits(monkeypatch):
         slice(0, 3), slice(3, 6), slice(6, 9), slice(9, 12)]
     with Counted() as n:
         w, V = solve.host_eigh(X)
-    assert (n.card, n.host) == (0, 10)
+    assert n.host == 10
     assert w.shape == (2, 5, 40) and V.shape == X.shape
     assert torch.equal(w, w0) and torch.equal(V, V0)
 

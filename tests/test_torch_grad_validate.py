@@ -180,18 +180,17 @@ def test_host_eigh_matches_torch_eigh():
 
 
 def test_exact_fit_takes_atwa_eig_on_the_host():
-    """fit_records decomposes every matrix through host_eigh, none on the
-    fit's device: exact mode AtWA's, the whitened pencil's and two
-    anchors' a record and R's once; fast mode AtWA's, the pencil's and the
-    final solve's; exact_grid 101 grid points, 40 bisection rounds for a
-    record with a root and the final solve."""
+    """fit_records decomposes every matrix through host_eigh: exact mode
+    AtWA's, the whitened pencil's and two anchors' a record and R's once;
+    fast mode AtWA's, the pencil's and the final solve's; exact_grid 101
+    grid points, 40 bisection rounds for a record with a root and the
+    final solve."""
     values, errors, A, R = make_records(2)
     for mode in ("exact", "fast", "exact_grid"):
-        e0, h0 = tsolve.eigh_matrices, tsolve.host_eigh_matrices
+        h0 = tsolve.host_eigh_matrices
         rp = tfit.fit_records(values, errors, A, R, regparam_mode=mode,
                               device="cpu")[3].numpy()[:, 0]
         roots = int((np.isfinite(rp) & (rp > 0)).sum())
         want = {"exact": 4 * 12 + 1, "fast": 3 * 12,
                 "exact_grid": 102 * 12 + 40 * roots}[mode]
         assert tsolve.host_eigh_matrices - h0 == want, mode
-        assert tsolve.eigh_matrices - e0 == want, mode

@@ -119,16 +119,15 @@ def test_kernel_config_points_per_thread():
     assert gec.kernel_config(6, 4) == gec.KernelConfig(6, 4, 2)
     assert gec.kernel_config(3, 2) == gec.KernelConfig(3, 4, 2)
     assert gec.kernel_config(10, 16) == gec.KernelConfig(10, 16, 1, True)
-    assert gec.kernel_config(6, 4).minblocks == 2
-    assert gec.kernel_config(10, 16).minblocks == 2
-    # more than one point a thread only where the launch bounds still keep
-    # two blocks an SM; the build passes them to the kernel
+    assert gec.MINBLOCKS == 2
+    # every instantiation keeps its points' live state within the launch
+    # bounds' two blocks an SM; the build passes them to the kernel
     for maxl in range(1, gec.MAX_L + 1):
         for maxk in range(1, gec.MAX_K + 1):
             cfg = gec.kernel_config(maxl, maxk)
             assert cfg.pt in (1, 2)
-            assert cfg.pt == 1 or cfg.minblocks == 2
-            assert f"-DVI_MINBLOCKS={cfg.minblocks}" in gec.defines(cfg)
+            assert cfg.tiled or cfg.pt * cfg.live <= gec.LIVE_MAX
+            assert "-DVI_MINBLOCKS=2" in gec.defines(cfg)
             assert (f"-DVI_PT={cfg.pt}" in gec.defines(cfg)) != cfg.tiled
 
 

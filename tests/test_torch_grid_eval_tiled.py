@@ -166,7 +166,7 @@ def test_kernel_config_routes_high_orders_to_tiled(order):
     assert cfg.tiled and cfg.source == gec.TILED_SOURCE
     assert cfg == gec.KernelConfig(order[0], -(-order[1] // 4) * 4, 1, True)
     assert gec.KernelConfig(order[0], cfg.maxkb, 1).live > gec.LIVE_MAX
-    assert cfg.minblocks == 2
+    assert gec.MINBLOCKS == 2
     assert gec.defines(cfg) == [
         f"-DVI_MAXL={order[0]}", f"-DVI_MAXKB={cfg.maxkb}",
         f"-DVI_TILE={gec.TILE}", f"-DVI_GROUP={gec.GROUP}",

@@ -58,6 +58,9 @@ MAX_L = 10
 MAX_K = 16
 MAX_DEGREE = 256
 THREADS = 256  # threads per block
+# blocks an SM the launch bounds ask for (128 registers a thread): every
+# instantiation kernel_config builds keeps its state within them
+MINBLOCKS = 2
 # shared memory a launch's tables may take: two blocks fit on an SM
 SMEM_BUDGET = 96 * 1024
 # registers a point may hold through grid_eval.cu's record loop; orders
@@ -103,15 +106,6 @@ class KernelConfig:
         """Registers a point holds through the record loop: Pc, Ps and the
         Laguerre rows."""
         return 2 * self.npairs - self.maxl + self.maxkb
-
-    @property
-    def minblocks(self):
-        """Blocks an SM the launch bounds ask for: two (128 registers a
-        thread) while PT points' live state fits, else one (no spills); the
-        tiled kernel keeps no such state and asks for two."""
-        if self.tiled:
-            return 2
-        return 2 if self.pt * self.live <= LIVE_MAX else 1
 
     @property
     def nrows(self):
@@ -265,7 +259,7 @@ def build(cfg):
     if cfg.tiled:
         got = (ctypes.c_int * 7)()
         lib.vi_grid_eval_tiled_config(ctypes.addressof(got))
-        want = (cfg.maxl, cfg.maxkb, TILE, GROUP, THREADS, cfg.minblocks,
+        want = (cfg.maxl, cfg.maxkb, TILE, GROUP, THREADS, MINBLOCKS,
                 cfg.tm_max)
         sizes = [(d, lib.vi_grid_eval_tiled_smem(d))
                  for d in (1, 28, MAX_DEGREE)]
@@ -276,7 +270,7 @@ def build(cfg):
     else:
         got = (ctypes.c_int * 5)()
         lib.vi_grid_eval_config(ctypes.addressof(got))
-        want = (cfg.maxl, cfg.maxkb, cfg.pt, THREADS, cfg.minblocks)
+        want = (cfg.maxl, cfg.maxkb, cfg.pt, THREADS, MINBLOCKS)
     if tuple(got) != want:
         raise RuntimeError(f"{so} holds instantiation {tuple(got)}, not {cfg}")
     _libs[cfg] = lib
@@ -288,10 +282,10 @@ def defines(cfg):
     if cfg.tiled:
         return [f"-DVI_MAXL={cfg.maxl}", f"-DVI_MAXKB={cfg.maxkb}",
                 f"-DVI_TILE={TILE}", f"-DVI_GROUP={GROUP}",
-                f"-DVI_THREADS={THREADS}", f"-DVI_MINBLOCKS={cfg.minblocks}"]
+                f"-DVI_THREADS={THREADS}", f"-DVI_MINBLOCKS={MINBLOCKS}"]
     return [f"-DVI_MAXL={cfg.maxl}", f"-DVI_MAXKB={cfg.maxkb}",
             f"-DVI_PT={cfg.pt}", f"-DVI_THREADS={THREADS}",
-            f"-DVI_MINBLOCKS={cfg.minblocks}"]
+            f"-DVI_MINBLOCKS={MINBLOCKS}"]
 
 
 def nvcc(flags, source, so):

@@ -17,13 +17,11 @@ leading record axis:
   device (normalized_eigh, whiten_pencil and the solves built on them),
   and so does every one of the leave-one-beam-out sweep's (sweep.py, by
   sym_pinv_apply).  On the card that is a design choice, not a fallback:
-  it lands the fits and the sweep's scores where the JAX package's CPU
-  float64 reference and a CPU run of the port land, whatever the batch's
-  layout (PERF.md).  The statistics, products, kept-block solves and
-  anchored rounds stay on the device.  ``eigh`` (cuSOLVER on the card) no
-  shipped path calls: scripts/fit_witness.py places a fit's sites on it
-  through the ``decompose`` argument of normalized_eigh, whiten_pencil,
-  cutoff_chi2_x and final_solve.
+  LAPACK resolves the modes at the gelsd cutoff as the JAX package's CPU
+  float64 reference does, where cuSOLVER NaN-failed records and put the
+  card's fits twice as far from that reference as a CPU's (PERF.md).  The
+  statistics, products, kept-block solves and anchored rounds stay on the
+  device.
 * chi^2 uses the cancellation-free identity chi2 = btWb - u'z/s - C'(aR)C
   (u = V'AtWb, z the kept-mode solve, s the normalization scale).
 * M-shift ANCHORS (``make_anchor`` / ``anchor_chi2`` /
@@ -57,29 +55,20 @@ from ..utils.logging import span
 EPS64 = 2.220446049250313e-16  # the reference's f64 cutoff unit
 TINY64 = 2.2250738585072014e-308  # finfo(float64).tiny
 _LOG2_10 = 3.321928094887362
-# matrices decomposed by ``eigh`` and ``host_eigh`` since import, and the
-# wall seconds of ``host_eigh`` calls: the copy to the host and LAPACK, not
-# the copy back to the card, which is queued without a wait (chip_smoke.py
-# reads all three)
-eigh_matrices = 0
+# matrices ``host_eigh`` has taken since import, and the wall seconds of
+# its calls: the copy to the host and LAPACK, not the copy back to the
+# card, which is queued without a wait (chip_smoke.py and the benchmark's
+# harness read them)
 host_eigh_matrices = 0
+eigh_matrices = 0  # always host_eigh_matrices; portbench/harness.py reads it
 host_eigh_seconds = 0.0
-# host threads of ``host_eigh``: each decomposes a slice of the batch
+# host threads of ``host_eigh``: each takes a slice of the batch
 HOST_EIGH_THREADS = min(8, os.cpu_count() or 1)
 # the most bytes of matrices ``host_eigh`` copies to the host at once (a
 # power of two, the caching host allocator's block sizes)
 HOST_EIGH_SLICE_BYTES = 2 << 30
 _pools = threading.local()
 _count_lock = threading.Lock()
-
-
-def eigh(X):
-    """torch.linalg.eigh of a (batch of) symmetric matrices on X's device
-    (cuSOLVER on the card), counted."""
-    global eigh_matrices
-    with _count_lock:
-        eigh_matrices += X[..., 0, 0].numel()
-    return torch.linalg.eigh(X)
 
 
 def _one_thread(started):
@@ -119,8 +108,9 @@ def _host_pool():
 
 
 def host_eigh(X):
-    """``eigh`` computed in LAPACK float64 on the host CPU, the batch split
-    over HOST_EIGH_THREADS threads; (w, V) come back on X's device.
+    """torch.linalg.eigh of a (batch of) symmetric matrices X, computed in
+    LAPACK float64 on the host CPU, the batch split over HOST_EIGH_THREADS
+    threads; (w, V) come back on X's device.
 
     The fit engine's one decomposition: every eigendecomposition whose
     result becomes a fit's C, dC, chi^2 or alpha comes here, in every
@@ -139,7 +129,7 @@ def host_eigh(X):
     matrices (``eigh_slices``): PyTorch's caching host allocator keeps every
     page-locked buffer for the life of the process, and a whole batch's
     (720 matrices of 1200 x 1200 in the sweep at BASELINE config 3) held
-    21 GiB.  LAPACK decomposes each matrix on its own, so the slicing moves
+    21 GiB.  LAPACK treats each matrix on its own, so the slicing moves
     no bit."""
     global eigh_matrices, host_eigh_matrices, host_eigh_seconds
     n = X[..., 0, 0].numel()
@@ -321,13 +311,10 @@ def norm_scale(X):
     return torch.where(t.abs() > 0, t.abs(), torch.ones_like(t))
 
 
-def normalized_eigh(X, decompose=None):
-    """(w, V, s): eigenpairs of X / s, s = norm_scale(X), by ``decompose``:
-    ``host_eigh`` when None (every shipped caller), or another
-    decomposition of the same signature (scripts/fit_witness.py's
-    placements)."""
+def normalized_eigh(X):
+    """(w, V, s): eigenpairs of X / s, s = norm_scale(X), by host_eigh."""
     s = norm_scale(X)
-    w, V = (decompose or host_eigh)(X / s[..., None, None])
+    w, V = host_eigh(X / s[..., None, None])
     return w, V, s
 
 
@@ -344,13 +331,13 @@ def _kept_solve(w, u, rcond):
                        torch.zeros_like(w))
 
 
-def cutoff_chi2_x(AtWA, AtWb, btWb, aR, atau=None, decompose=None):
+def cutoff_chi2_x(AtWA, AtWb, btWb, aR, atau=None):
     """chi^2 of the fit with X = AtWA + aR under reference gelsd-cutoff
     semantics (interpolate.py:220-261), batched: aR [B, nb, nb] is alpha R
     already formed, atau [B, nb] alpha tau or None.  The float64 branch of
     the JAX package's cutoff_chi2_x / chi2_from_eig_x (the
-    cancellation-free identity).  ``decompose``: as normalized_eigh's."""
-    w, V, s = normalized_eigh(AtWA + aR, decompose)
+    cancellation-free identity)."""
+    w, V, s = normalized_eigh(AtWA + aR)
     return chi2_from_eig_x(w, V, None, AtWb, btWb, s, aR=aR, atau=atau,
                            AtWA=AtWA)
 
@@ -393,7 +380,7 @@ def cutoff_chi2(a, AtWA, AtWb, btWb, R):
 
 
 def final_solve(AtWA, AtWb, btWb, reg_mats, log_alphas, reg_taus=None,
-                eig=None, decompose=None):
+                eig=None):
     """Coefficients, covariance and chi^2 of a record batch's regularized
     fit (interpolate.py:432-469 with calccov=True, and the chi^2 of
     interpolate.py:569): the float64 branch of final_solve_x.
@@ -403,8 +390,7 @@ def final_solve(AtWA, AtWb, btWb, reg_mats, log_alphas, reg_taus=None,
     AtWb + sum alpha tau, and chi^2 gains sum alpha tau'C).  Records with a
     NaN alpha are solved at alpha = 0 here; the caller NaN-fills them.
     eig: with no regularization matrix (X = AtWA), AtWA's ``normalized_eigh``
-    to use in place of decomposing X here; ``decompose``: as
-    normalized_eigh's.
+    to use in place of decomposing X here.
     Returns (C [nrec, nb], dC [nrec, nb, nb], chi2 [nrec])."""
     n = AtWA.shape[-1]
     aR = torch.zeros_like(AtWA)
@@ -418,15 +404,14 @@ def final_solve(AtWA, AtWb, btWb, reg_mats, log_alphas, reg_taus=None,
         if reg_taus is not None:
             rhs = rhs + a[:, None] * reg_taus[i]
     X = AtWA + aR
-    # a root at alpha = inf (a search that ran off the line) cannot be
-    # decomposed: solve the identity there; the outputs come out NaN
+    # a root at alpha = inf (a search that ran off the line) has no
+    # eigenpairs: solve the identity there; the outputs come out NaN
     bad = ~torch.isfinite(X).all(-1).all(-1)
     eye = torch.eye(n, dtype=X.dtype, device=X.device)
     if eig is not None and reg_mats.shape[0] == 0:
         w, V, s = eig
     else:
-        w, V, s = normalized_eigh(torch.where(bad[:, None, None], eye, X),
-                                  decompose)
+        w, V, s = normalized_eigh(torch.where(bad[:, None, None], eye, X))
     Vt = V.transpose(-1, -2)
     ub = (Vt @ AtWb[..., None])[..., 0]
     u = ub if reg_taus is None else (Vt @ rhs[..., None])[..., 0]
@@ -620,12 +605,12 @@ def final_solve_anchor(anchor, a_log, AtWA, btWb):
 WHITEN_JITTER = 1e-12  # AtWA's eigenvalues are clipped at this times the max
 
 
-def whiten_pencil(R, eig_AtWA, decompose=None):
+def whiten_pencil(R, eig_AtWA):
     """One-time whitening of the pencil (AtWA, R) for O(nbasis) alpha
     scans: with AtWA = V W V', B^-1 = W~^-1/2 V' (W~ clipped at
     WHITEN_JITTER max W), G = B^-1 R B^-T = Q Lam Q'.  R [n, n];
-    ``eig_AtWA``: (w [B, n], V [B, n, n]) of AtWA on the RAW scale;
-    ``decompose``: G's decomposition, as normalized_eigh's.  Returns (lam [B, n], Q [B, n, n], Binv [B, n, n])."""
+    ``eig_AtWA``: (w [B, n], V [B, n, n]) of AtWA on the RAW scale.
+    Returns (lam [B, n], Q [B, n, n], Binv [B, n, n])."""
     w, V = eig_AtWA
     n = w.shape[-1]
     wmax = w.abs().amax(-1, keepdim=True)
@@ -637,7 +622,7 @@ def whiten_pencil(R, eig_AtWA, decompose=None):
     G = Binv @ (R / sR) @ Binv.transpose(-1, -2)
     G = 0.5 * (G + G.transpose(-1, -2))
     sG = torch.diagonal(G, dim1=-2, dim2=-1).abs().sum(-1) / n + 1e-300
-    lam, Q = (decompose or host_eigh)(G / sG[:, None, None])
+    lam, Q = host_eigh(G / sG[:, None, None])
     return lam * (sG * sR)[:, None], Q, Binv
 
 
